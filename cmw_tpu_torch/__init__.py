@@ -1,0 +1,26 @@
+"""cmw_tpu_torch — PyTorch/CUDA port of the cmw_tpu centroidal-MPC solver.
+
+A second implementation of `cmw_tpu.cmpc.CentroidalMPCSolver.solve` for one
+NVIDIA H100, written batch-first (`[B, ...]` tensors) in plain PyTorch, with
+the two Pallas TPU kernels of the dense-KKT path rewritten by hand in CUDA
+C++ for `sm_90a` (`csrc/`):
+
+  core/        centroidal dynamics, fixed-shape contact plans
+  cmpc/        formulation, ADMM QP, parametric Riccati x-update, SQP solver
+  ops/         hand-written Hopper kernels (SPD inverse, packed symv), each
+               with a plain PyTorch twin and a launch counter
+  convert.py   numpy <-> tensor converters for the solver's containers
+
+Module paths mirror `cmw_tpu`, so each counterpart sits at the same path.
+This package never imports jax or cmw_tpu.
+"""
+
+import torch as _torch
+
+__version__ = "0.1.0"
+
+# Control numerics: TF32 keeps ~3 decimal digits, far too coarse for the
+# KKT solve (a reduced-precision KKT operator moved the ADMM fixed point in
+# the reference). Keep every float32 product in full float32 on the card.
+_torch.backends.cuda.matmul.allow_tf32 = False
+_torch.backends.cudnn.allow_tf32 = False

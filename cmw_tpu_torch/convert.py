@@ -1,0 +1,74 @@
+"""Numpy <-> tensor converters for the solver's containers.
+
+The solver has no learned weights; its state is the per-solve parameters,
+the contact plan and the warm start. These converters carry that state
+between the JAX package and the port: each `*_from_numpy` takes the JAX
+container (its NamedTuple, or a dict of the same field names) holding numpy
+arrays with a leading batch axis, and returns the port's container of
+tensors on the given device and dtype. `solution_to_numpy` goes back, to a
+dict of numpy arrays. `config_from_dict` inverts `dataclasses.asdict` of the
+JAX `MPCConfig` (lists, as from JSON, become tuples again).
+"""
+
+from __future__ import annotations
+
+from collections.abc import Mapping
+
+import numpy as np
+import torch
+
+from cmw_tpu_torch.cmpc.formulation import MPCConfig, MPCParams
+from cmw_tpu_torch.cmpc.solver import WarmStart
+from cmw_tpu_torch.core.contacts import ContactPlan, MPCStageParams
+
+
+def _get(obj, name):
+    return obj[name] if isinstance(obj, Mapping) else getattr(obj, name)
+
+
+def _convert(cls, obj, device, dtype, nested=None):
+    nested = nested or {}
+    fields = {}
+    for name in cls._fields:
+        value = _get(obj, name)
+        if name in nested:
+            fields[name] = nested[name](value, device=device, dtype=dtype)
+        else:
+            fields[name] = torch.as_tensor(np.array(value), dtype=dtype, device=device)
+    return cls(**fields)
+
+
+def stage_from_numpy(stage, *, device=None, dtype=torch.float32) -> MPCStageParams:
+    return _convert(MPCStageParams, stage, device, dtype)
+
+
+def plan_from_numpy(plan, *, device=None, dtype=torch.float32) -> ContactPlan:
+    return _convert(ContactPlan, plan, device, dtype)
+
+
+def params_from_numpy(params, *, device=None, dtype=torch.float32) -> MPCParams:
+    return _convert(MPCParams, params, device, dtype, nested={"stage": stage_from_numpy})
+
+
+def warm_from_numpy(warm, *, device=None, dtype=torch.float32) -> WarmStart:
+    return _convert(WarmStart, warm, device, dtype)
+
+
+def solution_to_numpy(sol) -> dict:
+    """A port NamedTuple (an `MPCSolution`, or any other, nested ones too) ->
+    a dict of numpy arrays with the same field names."""
+    out = {}
+    for name, value in sol._asdict().items():
+        out[name] = solution_to_numpy(value) if hasattr(value, "_asdict") else value.detach().cpu().numpy()
+    return out
+
+
+def _tuples(value):
+    if isinstance(value, (list, tuple)):
+        return tuple(_tuples(v) for v in value)
+    return value
+
+
+def config_from_dict(d: Mapping) -> MPCConfig:
+    """`dataclasses.asdict(jax_cfg)` (or its JSON round trip) -> MPCConfig."""
+    return MPCConfig(**{k: _tuples(v) for k, v in d.items()})

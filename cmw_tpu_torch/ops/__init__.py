@@ -1,0 +1,12 @@
+"""Hand-written Hopper kernels of the dense KKT path, one module each.
+
+  spd_inverse  batched SPD inverse (csrc/spd_inverse.cu), replaces the
+               Pallas `spd_inverse_pallas`
+  symv         packed symmetric matvec (csrc/symv.cu), replaces the Pallas
+               `symv_packed`
+  _build       nvcc build of csrc/*.cu and the ctypes binding
+
+Each wrapper launches its kernel on a CUDA tensor (or raises), uses its plain
+PyTorch twin on a CPU tensor, and counts its launches in a module-level
+`launches` integer.
+"""

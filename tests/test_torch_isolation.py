@@ -1,0 +1,45 @@
+"""The port runs without JAX: importing `cmw_tpu_torch` and running a solve
+loads neither `jax` nor the JAX package `cmw_tpu`."""
+
+import os
+import subprocess
+import sys
+
+SCRIPT = r"""
+import sys
+import torch
+import cmw_tpu_torch
+from cmw_tpu_torch.cmpc import CentroidalMPCSolver, MPCParams, ergocub_mpc_config
+from cmw_tpu_torch.core import contacts
+
+torch.set_num_threads(1)
+assert not torch.backends.cuda.matmul.allow_tf32 and not torch.backends.cudnn.allow_tf32
+cfg = ergocub_mpc_config(horizon=0.6, kkt_impl="dense")
+plan = contacts.snap_to_grid(contacts.make_alternating_gait(n_steps=8), cfg.dt)
+stage = contacts.mpc_stage_params(plan, 1.02, cfg.T, cfg.dt, cfg.n_slots)
+params = MPCParams(
+    x0=torch.tensor([[0.0, 0.0, 0.7, 0, 0, 0, 0, 0, 0]]),
+    com_ref=torch.tensor([0.0, 0.0, 0.7]).expand(1, cfg.N, 3),
+    ang_mom_ref=torch.zeros(1, cfg.N, 3),
+    stage=type(stage)(*[a[None] for a in stage]),
+    ext_force=torch.zeros(1, 3),
+    ext_torque=torch.zeros(1, 3),
+)
+for kkt in ("dense", "riccati"):
+    solver = CentroidalMPCSolver(ergocub_mpc_config(horizon=0.6, kkt_impl=kkt))
+    sol = solver.solve(params, solver.cold_start(1))
+    assert bool(torch.isfinite(sol.z).all()) and float(sol.prim_res[0]) < 1e-2
+import cmw_tpu_torch.convert
+loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "cmw_tpu"))
+print("LOADED", loaded)
+assert not loaded, loaded
+"""
+
+
+def test_port_imports_no_jax():
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=root)
+    proc = subprocess.run([sys.executable, "-c", SCRIPT], cwd=root, env=env, capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "LOADED []" in proc.stdout
