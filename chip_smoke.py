@@ -8,20 +8,31 @@ configuration (ergocub_mpc_config(): T = 20, 504 variables, 1,304 constraint
 rows, sqp 2 x admm 24) on the card, through the same entry points a user
 calls, and checks it:
 
-  1. the card's name and power limit; the kernels' build from csrc/*.cu;
+  1. the card's name and power limit; the kernels' build from csrc/*.cu (one
+     nvcc per source, all started together);
   2. each hand-written kernel against its plain PyTorch twin on the card:
      the SPD inverse (||I - M X||_inf < 1e-4 on real walking KKT matrices
-     and on a badly scaled random SPD matrix) and the packed symv
-     (rtol 2e-5 / atol 1e-4);
-  3. the dense-KKT main path (the kernels): a cold solve and 10 warm-started
-     receding-horizon ticks at B = 1, the lateral-push footstep check, then
-     the bench shape (B = 512 pushes, KB = 4 warm-started solves); both
-     kernels' launch counts must rise during this phase;
-  4. the default Riccati main path (plain PyTorch), the same chains;
-  5. numerics sentinel: the card's dense solve vs the port's plain CPU solve,
-     and the card's Riccati solve vs its dense solve, each within
-     |dcost| <= 0.005 (|cost| + 1) and prim_res < 1e-2;
-  6. timings (printed, not asserted).
+     and on a badly scaled random SPD matrix), the packed symv (rtol 2e-5 /
+     atol 1e-4) and the fused ADMM loop on real walking QPs (minv from the
+     SPD-inverse kernel, A from constraint_dense, q from the cold-start
+     linearisation) at B = 4 and B = 512, iters = 24, for each operand
+     precision, within ADMM_TOL;
+  3. the dense-KKT main path with the batched ADMM loop (K3, K4): a cold
+     solve and 10 warm-started receding-horizon ticks at B = 1, the
+     lateral-push footstep check, then the bench shape (B = 512 pushes,
+     KB = 4 warm-started solves); both kernels' launch counts must rise;
+  4. the dense-KKT main path with the fused ADMM kernel (K3, K5,
+     admm_impl="fused"): the same chains; K5 must launch exactly sqp_iters
+     times per solve and K4 never;
+  5. the default Riccati main path (plain PyTorch), the same chains;
+  6. numerics sentinel: the card's dense solve vs the port's plain CPU solve,
+     the card's Riccati and fused solves vs its dense solve and the fused vs
+     the Riccati solve, each within |dcost| <= 0.005 (|cost| + 1) and
+     prim_res < 1e-2; the bench chains of the three paths against each other;
+  7. timings (printed, not asserted): each kernel at B = 1 and B = 512 beside
+     its bound, its plain twin and, where one exists, the one PyTorch call
+     that computes the same function; each path's B = 1 warm tick and
+     B = 512 x KB = 4 rate.
 
 It imports nothing of JAX. Without a CUDA device it fails. The last two
 lines are the kernels' JSON record and {"ok": true, "device": {...}}.
@@ -40,12 +51,29 @@ from cmw_tpu_torch.cmpc import CentroidalMPCSolver, MPCParams, ergocub_mpc_confi
 from cmw_tpu_torch.cmpc import formulation as F
 from cmw_tpu_torch.core import contacts
 from cmw_tpu_torch.ops import _build
+from cmw_tpu_torch.ops import admm_fused as K5
 from cmw_tpu_torch.ops import spd_inverse as K3
 from cmw_tpu_torch.ops import symv as K4
 
 T0 = 1.02  # left foot swinging: its next footstep is adjustable
 RESID_TOL = 1e-4  # ||I - M X||_inf, the inverse's done-check
 SYMV_RTOL, SYMV_ATOL = 2e-5, 1e-4  # f32 sums in another order (tests/test_ops.py:138)
+ADMM_ITERS = 24  # the production admm_iters
+# Fused ADMM kernel vs twin, 24 iterations: per scenario, max |diff| /
+# (max |twin| + 1) over (x, zc, y); the tolerances bound the largest and the
+# median over the scenarios. The noise, from the twin in f32 against the twin
+# in f64 on 128 walking QPs like these (CPU): f32 at most 1.2e-5 (sums in
+# another order; KKT rows span rho 10..1e4). In the bf16 modes each side
+# rounds its own vector operand, whose entries reach ~1e4, to bf16: an f32 ulp
+# flips a rounding and the loop carries it on, in a few scenarios up to 0.12,
+# with a median of 2.5e-4; a scenario run in another mode differs by a median
+# of 3.6e-2 or more. So the median tells the modes apart and the largest only
+# bounds the drift.
+ADMM_TOL = {"f32": (1e-4, 1e-4), "bf16": (0.5, 2e-3), "bf16x2": (0.5, 2e-3)}  # (largest, median)
+# The card's peaks (NVIDIA H100 SXM data sheet, dense, at the 700 W limit):
+# what each kernel's least time ("bound") is computed from.
+HBM_BYTES_PER_S = 3.35e12
+F32_FLOP_PER_S = 67e12  # float32 outside the tensor cores
 
 
 def require(cond, msg: str) -> None:
@@ -54,14 +82,22 @@ def require(cond, msg: str) -> None:
 
 
 def make_params(cfg, pushes, t0=T0, x0=None, device="cuda"):
-    """Bench-shaped walking parameters, one item per push row [B, 3]."""
+    """Bench-shaped walking parameters, one item per push row [B, 3]; `t0` a
+    float, or a tensor [B] of one start time per item."""
     B = pushes.shape[0]
     plan = contacts.snap_to_grid(contacts.make_alternating_gait(n_steps=8, device=device), cfg.dt)
-    stage = contacts.mpc_stage_params(plan, t0, cfg.T, cfg.dt, cfg.n_slots)
-    stage = type(stage)(*[a.expand((B,) + a.shape).contiguous() for a in stage])
+    if isinstance(t0, torch.Tensor):
+        plan = type(plan)(*[a.expand((B,) + a.shape) for a in plan])
+        stage = contacts.mpc_stage_params(plan, t0.to(device), cfg.T, cfg.dt, cfg.n_slots)
+        stage = type(stage)(*[a.contiguous() for a in stage])
+        shift = (t0.to(device) - T0)[:, None, None]
+    else:
+        stage = contacts.mpc_stage_params(plan, t0, cfg.T, cfg.dt, cfg.n_slots)
+        stage = type(stage)(*[a.expand((B,) + a.shape).contiguous() for a in stage])
+        shift = t0 - T0
     N = cfg.N
     j = torch.arange(N, device=device, dtype=torch.float32)[:, None]
-    com_ref = torch.tensor([0.0, 0.0, 0.7], device=device) + 0.08 * (cfg.dt * j + (t0 - T0)) * torch.tensor(
+    com_ref = torch.tensor([0.0, 0.0, 0.7], device=device) + 0.08 * (cfg.dt * j + shift) * torch.tensor(
         [1.0, 0.0, 0.0], device=device
     )
     if x0 is None:
@@ -81,17 +117,24 @@ def lateral(values, device="cuda"):
     return torch.stack([torch.zeros_like(v), v, torch.zeros_like(v)], dim=-1)
 
 
-def kkt_matrix(cfg, params):
-    """The KKT matrix H0 + sigma I + A^T rho A that the dense solve builds at
-    its cold-start point."""
+def cold_linearisation(cfg, params):
+    """What the dense solve builds at its cold-start point z0: the KKT matrix
+    M = H0 + sigma I + A^T rho A, and the fused ADMM kernel's inputs other
+    than minv: (A dense, q = g - H0 z0, l, u, rho, z0, zc0 = clip(A z0), y0 = 0)."""
     solver = CentroidalMPCSolver(cfg)
-    B = params.x0.shape[0]
-    z0 = solver._initial_z(params, solver.cold_start(B, device=params.x0.device))
+    B, device = params.x0.shape[0], params.x0.device
+    z0 = solver._initial_z(params, solver.cold_start(B, device=device))
     J = torch.func.vmap(torch.func.jacfwd(lambda p, z: F.residuals(cfg, p, z), argnums=1))(params, z0)
-    _, _, rho = F.constraint_bounds(cfg, params.stage)
-    eye = torch.eye(cfg.n_vars, device=z0.device)
-    M = J.transpose(-1, -2) @ J + cfg.levenberg * eye + cfg.admm_sigma * eye + F.ata_blockdiag(cfg, params.stage, rho)
-    return M.contiguous()
+    r = F.residuals(cfg, params, z0)
+    l, u, rho = F.constraint_bounds(cfg, params.stage)
+    eye = torch.eye(cfg.n_vars, device=device)
+    Jt = J.transpose(-1, -2)
+    H = Jt @ J + cfg.levenberg * eye
+    M = H + cfg.admm_sigma * eye + F.ata_blockdiag(cfg, params.stage, rho)
+    q = (Jt @ r[..., None] - H @ z0[..., None])[..., 0]
+    A = F.constraint_dense(cfg, params.stage)
+    zc0 = torch.clamp((A @ z0[..., None])[..., 0], l, u)
+    return M.contiguous(), (A, q.contiguous(), l, u, rho, z0, zc0, torch.zeros_like(zc0))
 
 
 def resid(M, X):
@@ -111,12 +154,38 @@ def cuda_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
+def bound(nbytes, flops):
+    """(least ms on the card, what sets it): bytes moved once over the memory
+    rate against float32 operations over the float32 peak."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOP_PER_S
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def bound_spd_inverse(M):
+    # Cholesky n^3/3, triangular inverse n^3/3, the symmetric X^T X n^3/3
+    B, n = M.shape[0], M.shape[-1]
+    return bound(2 * M.numel() * 4, B * n**3)
+
+
+def bound_symv(packed, v):
+    B, n = v.shape
+    return bound((packed.numel() + 2 * v.numel()) * 4, 2 * B * n * n)
+
+
+def bound_admm_fused(args, iters):
+    # inputs read once, (x, zc, y) written once; per iteration A^T w, minv rhs
+    # and A x (2 flops per matrix entry each) and the vector updates (12 m + 3 n)
+    B, m, n = args[1].shape  # A
+    nbytes = (sum(t.numel() for t in args) + B * (n + 2 * m)) * 4
+    return bound(nbytes, B * iters * (4 * m * n + 2 * n * n + 12 * m + 3 * n))
+
+
 def tick_chain(solver, cfg, ticks, push=0.0):
     """B = 1: a cold solve, then `ticks` warm-started receding-horizon ticks
     (t0 advances by dt, x0 is the previous solve's predicted next state).
     Returns the solutions and the per-solve wall times in ms."""
     params = make_params(cfg, lateral([push]))
-    warm = solver.cold_start(1, device="cuda")
+    warm = solver.cold_start(1)
     sols, times = [], []
     for k in range(ticks + 1):
         torch.cuda.synchronize()
@@ -137,7 +206,7 @@ def bench_chain(solver, cfg, B=512, KB=4):
     """bench.py's shape: B lateral pushes in linspace(-1, 1), KB warm-started
     solves of the same parameters. Returns (costs [KB, B], prim [KB, B], s)."""
     params = make_params(cfg, lateral(torch.linspace(-1.0, 1.0, B)))
-    warm = solver.cold_start(B, device="cuda")
+    warm = solver.cold_start(B)
     costs, prims = [], []
     torch.cuda.synchronize()
     t = time.perf_counter()
@@ -158,7 +227,7 @@ def push_saturates_box(solver, cfg):
     """ext_force [0, 1.2, 0] moves the left foot's next step to the +y edge of
     its box (dy = bbox_upper[0][1] = 0.05) and stays inside every box."""
     params = make_params(cfg, lateral([1.2]))
-    sol = solver.solve(params, solver.cold_start(1, device="cuda"))
+    sol = solver.solve(params, solver.cold_start(1))
     stage = params.stage
     adj = (stage.slot_adjustable * stage.slot_valid)[..., None]
     d = ((sol.positions - stage.slot_pos_nom) * adj)[0].cpu()
@@ -168,6 +237,33 @@ def push_saturates_box(solver, cfg):
     require(abs(dy - cfg.bbox_upper[0][1]) < 1e-3, f"push: left-foot dy {dy}, expected the box edge")
     require(bool(((d <= bu + 1e-4) & (d >= bl - 1e-4)).all()), "push: footstep outside its box")
     return dy
+
+
+KERNELS = {"spd_inverse": K3, "symv_packed": K4, "admm_fused": K5}
+
+
+def zero_launches():
+    for mod in KERNELS.values():
+        mod.launches = 0
+
+
+def read_launches():
+    return {name: mod.launches for name, mod in KERNELS.items()}
+
+
+def main_path(name, solver, cfg):
+    """One main path with the launch counts zeroed just before it and read
+    just after: 11 B = 1 solves, the push check, 4 B = 512 solves. Returns the
+    B = 1 solutions, the bench chain's costs and the launches."""
+    zero_launches()
+    ticks, _ = tick_chain(solver, cfg, ticks=10)
+    dy = push_saturates_box(solver, cfg)
+    costs, prims, _ = bench_chain(solver, cfg)
+    launches = read_launches()
+    print(f"{name} main path: 11 B=1 solves (last cost {float(ticks[-1].cost):.4f}, "
+          f"max prim {max(float(s.prim_res) for s in ticks):.2e}), push dy {dy:.5f}, "
+          f"B=512 x KB=4 (max prim {float(prims.max()):.2e}); launches {launches}")
+    return ticks, costs, launches
 
 
 def main():
@@ -181,6 +277,7 @@ def main():
     tag = f"[{card}]"
     dev = "cuda"
     cfg_dense = ergocub_mpc_config(kkt_impl="dense")
+    cfg_fused = ergocub_mpc_config(kkt_impl="dense", admm_impl="fused")
     cfg_ric = ergocub_mpc_config()
 
     # --- 1. build ------------------------------------------------------------
@@ -190,13 +287,13 @@ def main():
           f"load {time.perf_counter() - t:.2f} s")
 
     # --- 2. kernels vs plain twins on the card ------------------------------
-    M_real = kkt_matrix(cfg_dense, make_params(cfg_dense, lateral([-1.0, 0.0, 0.6, 1.2])))
+    M_real, qp4 = cold_linearisation(cfg_dense, make_params(cfg_dense, lateral([-1.0, 0.0, 0.6, 1.2])))
     rng = np.random.default_rng(0)
     A = rng.normal(size=(4, 504, 504)).astype(np.float32) * 0.02
     H = np.einsum("bij,bkj->bik", A, A) + np.eye(504, dtype=np.float32)
     H[:, :50, :50] += 1e4 * np.eye(50, dtype=np.float32)  # rho_eq-like scale spread
     M_rand = torch.tensor(H, device=dev)
-    k3_err = 0.0
+    errs = {"spd_inverse": 0.0, "symv_packed": 0.0, "admm_fused": 0.0}
     for name, M in (("walking KKT", M_real), ("scaled random SPD", M_rand)):
         X = K3.spd_inverse(M)
         torch.cuda.synchronize()
@@ -208,7 +305,7 @@ def main():
         print(f"phase 2 K3 spd_inverse {name} [4, 504, 504]: ||I-MX||_inf kernel {rk:.3e} twin {rr:.3e}; "
               f"max|X-Xref| {err:.3e} (rel {rel:.3e})")
         require(rk < RESID_TOL, f"K3 residual {rk} >= {RESID_TOL} on {name}")
-        k3_err = max(k3_err, err)
+        errs["spd_inverse"] = max(errs["spd_inverse"], err)
 
     gen = torch.Generator(device=dev).manual_seed(7)
     P = torch.randn(512, 512, 512, device=dev, generator=gen)
@@ -229,79 +326,124 @@ def main():
     torch.cuda.synchronize()
     ref_real = K4.symv_packed_ref(pk_real, v_real)
     ok_real = torch.allclose(out_real, ref_real, rtol=SYMV_RTOL, atol=SYMV_ATOL)
-    k4_err = max(k4_err, float((out_real - ref_real).abs().max()))
+    errs["symv_packed"] = max(k4_err, float((out_real - ref_real).abs().max()))
     print(f"phase 2 K4 symv_packed [512, 10, 128, 128] random SPD and [4, 10, 128, 128] KKT inverse: "
-          f"max|out-ref| {k4_err:.3e}, allclose(rtol {SYMV_RTOL}, atol {SYMV_ATOL}) {ok} / {ok_real}")
+          f"max|out-ref| {errs['symv_packed']:.3e}, allclose(rtol {SYMV_RTOL}, atol {SYMV_ATOL}) {ok} / {ok_real}")
     require(ok and ok_real, "K4 disagrees with its twin")
 
-    # --- 3. dense main path: the kernels ------------------------------------
+    # real walking QPs at B = 512: pushes in linspace(-1, 1), start times over 8 ticks of the gait
+    B512 = 512
+    M512, qp512 = cold_linearisation(
+        cfg_dense,
+        make_params(cfg_dense, lateral(torch.linspace(-1.0, 1.0, B512)),
+                    t0=T0 + cfg_dense.dt * (torch.arange(B512) % 8).float()),
+    )
+    k5_args = {4: (Minv, *qp4), B512: (K3.spd_inverse(M512), *qp512)}
+    for B, args in k5_args.items():
+        for mode, (tol_max, tol_median) in ADMM_TOL.items():
+            got = K5.admm_fused(*args, iters=ADMM_ITERS, mxu_dtype=mode)
+            torch.cuda.synchronize()
+            want = K5.admm_fused_ref(*args, iters=ADMM_ITERS, mxu_dtype=mode)
+            diff = [float((g - w).abs().max()) for g, w in zip(got, want)]
+            rel = torch.stack([(g - w).abs().amax(-1) / (w.abs().amax(-1) + 1.0) for g, w in zip(got, want)]).amax(0)
+            worst, median = float(rel.max()), float(rel.median())
+            finite = all(bool(torch.isfinite(g).all()) for g in got)
+            print(f"phase 2 K5 admm_fused B={B} iters={ADMM_ITERS} {mode}: max|diff| x {diff[0]:.3e} "
+                  f"zc {diff[1]:.3e} y {diff[2]:.3e}; per scenario / (max|twin| + 1): largest {worst:.3e} "
+                  f"(tol {tol_max:g}), median {median:.3e} (tol {tol_median:g})")
+            require(finite and worst <= tol_max and median <= tol_median,
+                    f"K5 {mode} at B={B} disagrees with its twin")
+            if mode == "f32":
+                errs["admm_fused"] = max(errs["admm_fused"], max(diff))
+
+    # --- 3. dense main path: K3 + K4 ----------------------------------------
     dense = CentroidalMPCSolver(cfg_dense)
-    K3.launches = 0
-    K4.launches = 0
-    dense_ticks, dense_t1 = tick_chain(dense, cfg_dense, ticks=10)
-    dy = push_saturates_box(dense, cfg_dense)
-    dense_costs, dense_prims, dense_s = bench_chain(dense, cfg_dense)
-    launches = {"spd_inverse": K3.launches, "symv_packed": K4.launches}
-    print(f"phase 3 dense main path: 11 B=1 solves (last cost {float(dense_ticks[-1].cost):.4f}, "
-          f"max prim {max(float(s.prim_res) for s in dense_ticks):.2e}), push dy {dy:.5f}, "
-          f"B=512 x KB=4 (max prim {float(dense_prims.max()):.2e}); launches {launches}")
-    require(all(n > 0 for n in launches.values()), f"a kernel of the dense path never launched: {launches}")
+    dense_ticks, dense_costs, l_dense = main_path("phase 3 dense", dense, cfg_dense)
+    require(l_dense["spd_inverse"] > 0 and l_dense["symv_packed"] > 0 and l_dense["admm_fused"] == 0,
+            f"dense path launches {l_dense}")
 
-    # --- 4. default main path: Riccati, plain PyTorch ------------------------
+    # --- 4. fused main path: K3 + K5 ----------------------------------------
+    fused = CentroidalMPCSolver(cfg_fused)
+    fused_ticks, fused_costs, l_fused = main_path("phase 4 fused", fused, cfg_fused)
+    n_solves = 11 + 1 + 4
+    require(l_fused["admm_fused"] == cfg_fused.sqp_iters * n_solves and l_fused["spd_inverse"] > 0
+            and l_fused["symv_packed"] == 0, f"fused path launches {l_fused}, expected admm_fused "
+            f"{cfg_fused.sqp_iters} x {n_solves} solves")
+
+    # --- 5. default main path: Riccati, plain PyTorch ------------------------
     ric = CentroidalMPCSolver(cfg_ric)
-    ric_ticks, ric_t1 = tick_chain(ric, cfg_ric, ticks=10)
-    push_saturates_box(ric, cfg_ric)
-    ric_costs, ric_prims, ric_s = bench_chain(ric, cfg_ric)
-    print(f"phase 4 riccati main path: 11 B=1 solves (last cost {float(ric_ticks[-1].cost):.4f}), "
-          f"B=512 x KB=4 (max prim {float(ric_prims.max()):.2e})")
+    ric_ticks, ric_costs, _ = main_path("phase 5 riccati", ric, cfg_ric)
 
-    # --- 5. numerics sentinel -----------------------------------------------
+    # --- 6. numerics sentinel -----------------------------------------------
     pushes = [0.0, -1.0, 1.0, 1.2]
     p_gpu = make_params(cfg_dense, lateral(pushes))
-    s_dense = dense.solve(p_gpu, dense.cold_start(4, device=dev))
-    s_ric = ric.solve(p_gpu, ric.cold_start(4, device=dev))
+    s_dense = dense.solve(p_gpu, dense.cold_start(4))
+    s_fused = fused.solve(p_gpu, fused.cold_start(4))
+    s_ric = ric.solve(p_gpu, ric.cold_start(4))
     p_cpu = make_params(cfg_dense, lateral(pushes, device="cpu"), device="cpu")
-    s_cpu = dense.solve(p_cpu, dense.cold_start(4))
-    for name, a, b in (("dense gpu vs dense cpu", s_dense, s_cpu), ("riccati gpu vs dense gpu", s_ric, s_dense)):
+    s_cpu = dense.solve(p_cpu, dense.cold_start(4, device="cpu"))
+    for name, a, b in (("dense gpu vs dense cpu", s_dense, s_cpu), ("riccati gpu vs dense gpu", s_ric, s_dense),
+                       ("fused gpu vs dense gpu", s_fused, s_dense), ("fused gpu vs riccati gpu", s_fused, s_ric)):
         ca, cb = a.cost.cpu(), b.cost.cpu()
         dc = (ca - cb).abs()
         good = bool((dc <= 0.005 * (cb.abs() + 1.0)).all()) and float(a.prim_res.max()) < 1e-2
-        print(f"phase 5 sentinel {name}: costs {ca.tolist()} vs {cb.tolist()}, max|dcost| {float(dc.max()):.3e}, "
+        print(f"phase 6 sentinel {name}: costs {ca.tolist()} vs {cb.tolist()}, max|dcost| {float(dc.max()):.3e}, "
               f"prim {float(a.prim_res.max()):.2e}: {'ok' if good else 'FAIL'}")
         require(good, f"numerics sentinel failed: {name}")
-    # the same B=512 x KB=4 chain on both branches lands on the same costs
-    dc = (ric_costs - dense_costs).abs()
-    print(f"phase 5 bench chain riccati vs dense: max|dcost| {float(dc.max()):.3e} "
-          f"(max |cost| {float(dense_costs.abs().max()):.2f})")
-    require(bool((dc <= 0.005 * (dense_costs.abs() + 1.0)).all()), "bench chain: branches disagree")
+    # the same chains on the three paths land on the same costs
+    for name, a, b in (("riccati vs dense", ric_costs, dense_costs), ("fused vs dense", fused_costs, dense_costs),
+                       ("fused vs riccati", fused_costs, ric_costs)):
+        dc = (a - b).abs()
+        print(f"phase 6 bench chain {name}: max|dcost| {float(dc.max()):.3e} (max |cost| {float(b.abs().max()):.2f})")
+        require(bool((dc <= 0.005 * (b.abs() + 1.0)).all()), f"bench chain: {name} disagree")
+    for name, a, b in (("fused vs dense", fused_ticks, dense_ticks), ("riccati vs dense", ric_ticks, dense_ticks)):
+        dc = max(abs(float(x.cost) - float(y.cost)) / (abs(float(y.cost)) + 1.0) for x, y in zip(a, b))
+        print(f"phase 6 B=1 tick chain {name}: max |dcost| / (|cost| + 1) {dc:.3e}")
+        require(dc <= 0.005, f"B=1 tick chain: {name} disagree")
 
-    # --- 6. timings (not asserted) ------------------------------------------
-    times = {}
-    for B in (1, 512):
+    # --- 7. timings (not asserted) ------------------------------------------
+    times, bounds = {}, {}
+    for B in (1, B512):
         Mb = M_real[:1].expand(B, 504, 504).contiguous()
         pb = pk_real[:1].expand(B, 10, 128, 128).contiguous()
         vb = v_real[:1].expand(B, 512).contiguous()
-        times[("spd_inverse", B)] = (cuda_ms(lambda: K3.spd_inverse(Mb), 5), cuda_ms(lambda: K3.spd_inverse_ref(Mb), 5))
+        dense_b = K4.unpack_symmetric(pb)
+        ab = tuple(a[:B].contiguous() for a in k5_args[B512])
+        times[("spd_inverse", B)] = (cuda_ms(lambda: K3.spd_inverse(Mb), 5), cuda_ms(lambda: K3.spd_inverse_ref(Mb), 5),
+                                     cuda_ms(lambda: torch.linalg.inv(Mb), 5))
         times[("symv_packed", B)] = (cuda_ms(lambda: K4.symv_packed(pb, vb), 50),
-                                     cuda_ms(lambda: K4.symv_packed_ref(pb, vb), 50))
-    for (name, B), (ms, plain) in times.items():
-        print(f"phase 6 time {name} B={B}: kernel {ms:.4f} ms, plain twin {plain:.4f} ms {tag}")
-    for name, solver, cfg in (("dense", dense, cfg_dense), ("riccati", ric, cfg_ric)):
-        _, t1 = tick_chain(solver, cfg, ticks=30)
+                                     cuda_ms(lambda: K4.symv_packed_ref(pb, vb), 50),
+                                     cuda_ms(lambda: torch.matmul(dense_b, vb[..., None]), 50))
+        times[("admm_fused", B)] = (cuda_ms(lambda: K5.admm_fused(*ab, iters=ADMM_ITERS), 5),
+                                    cuda_ms(lambda: K5.admm_fused_ref(*ab, iters=ADMM_ITERS), 5), None)
+        bounds[("spd_inverse", B)] = bound_spd_inverse(Mb)
+        bounds[("symv_packed", B)] = bound_symv(pb, vb)
+        bounds[("admm_fused", B)] = bound_admm_fused(ab, ADMM_ITERS)
+    for (name, B), (ms, plain, lib) in times.items():
+        b_ms, b_by = bounds[(name, B)]
+        lib_s = "none" if lib is None else f"{lib:.4f} ms"
+        print(f"phase 7 time {name} B={B}: kernel {ms:.4f} ms, plain twin {plain:.4f} ms, library {lib_s}, "
+              f"bound {b_ms:.4f} ms ({b_by}), kernel at {100 * b_ms / ms:.1f} % of the bound {tag}")
+    for name, solver, cfg in (("dense", dense, cfg_dense), ("fused", fused, cfg_fused), ("riccati", ric, cfg_ric)):
+        _, t1 = tick_chain(solver, cfg, ticks=20)
         lat = np.array(t1[1:])  # warm-started ticks
         _, _, s = bench_chain(solver, cfg)
-        print(f"phase 6 time {name} B=1 warm tick: p50 {np.percentile(lat, 50):.2f} ms, "
+        print(f"phase 7 time {name} B=1 warm tick: p50 {np.percentile(lat, 50):.2f} ms, "
               f"p90 {np.percentile(lat, 90):.2f} ms, max {lat.max():.2f} ms ({len(lat)} ticks) {tag}")
-        print(f"phase 6 time {name} B=512 x KB=4: {s:.3f} s, {512 * 4 / s:.1f} solves/s {tag}")
+        print(f"phase 7 time {name} B=512 x KB=4: {s:.3f} s, {512 * 4 / s:.1f} solves/s {tag}")
 
-    record = {"kernels": [
-        {"name": "spd_inverse", "route": "cuda", "source": "cmw_tpu_torch/csrc/spd_inverse.cu",
-         "replaces": "cmw_tpu/ops/spd_inverse.py:132", "launches": launches["spd_inverse"],
-         "max_abs_err": k3_err, "ms": times[("spd_inverse", 512)][0], "plain_ms": times[("spd_inverse", 512)][1]},
-        {"name": "symv_packed", "route": "cuda", "source": "cmw_tpu_torch/csrc/symv.cu",
-         "replaces": "cmw_tpu/ops/symv.py:77", "launches": launches["symv_packed"],
-         "max_abs_err": k4_err, "ms": times[("symv_packed", 512)][0], "plain_ms": times[("symv_packed", 512)][1]},
-    ]}
+    sources = {"spd_inverse": ("cmw_tpu_torch/csrc/spd_inverse.cu", "cmw_tpu/ops/spd_inverse.py:132"),
+               "symv_packed": ("cmw_tpu_torch/csrc/symv.cu", "cmw_tpu/ops/symv.py:77"),
+               "admm_fused": ("cmw_tpu_torch/csrc/admm_fused.cu", "cmw_tpu/ops/admm_fused.py:143")}
+    record = {"kernels": []}
+    for name, (source, replaces) in sources.items():
+        ms, plain, lib = times[(name, B512)]
+        b_ms, b_by = bounds[(name, B512)]
+        record["kernels"].append({
+            "name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": l_dense[name] + l_fused[name], "max_abs_err": errs[name], "ms": ms, "plain_ms": plain,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib,
+        })
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

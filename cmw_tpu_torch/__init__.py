@@ -2,13 +2,14 @@
 
 A second implementation of `cmw_tpu.cmpc.CentroidalMPCSolver.solve` for one
 NVIDIA H100, written batch-first (`[B, ...]` tensors) in plain PyTorch, with
-the two Pallas TPU kernels of the dense-KKT path rewritten by hand in CUDA
-C++ for `sm_90a` (`csrc/`):
+the three Pallas TPU kernels of the dense-KKT path rewritten by hand in CUDA
+C++ for `sm_90a` (`csrc/`). Its entry points put their tensors on the card
+(`device="cuda"`) unless the caller passes `device="cpu"`:
 
   core/        centroidal dynamics, fixed-shape contact plans
   cmpc/        formulation, ADMM QP, parametric Riccati x-update, SQP solver
-  ops/         hand-written Hopper kernels (SPD inverse, packed symv), each
-               with a plain PyTorch twin and a launch counter
+  ops/         hand-written Hopper kernels (SPD inverse, packed symv, fused
+               ADMM), each with a plain PyTorch twin and a launch counter
   convert.py   numpy <-> tensor converters for the solver's containers
 
 Module paths mirror `cmw_tpu`, so each counterpart sits at the same path.

@@ -35,8 +35,9 @@ class MPCConfig:
     inverse; `inverse_impl` "auto"/"pallas" -> the hand-written inverse
     kernel (`ops/spd_inverse.py`), "xla" -> plain Cholesky (`qp.spd_inverse`);
     `xupdate_impl` "auto" -> "symv" on CUDA tensors, "dense" on the CPU;
-    `admm_impl` "auto"/"xla" -> the batched ADMM loop ("fused" is not ported
-    yet); `kkt_dtype` must be "f32".
+    `admm_impl` "auto"/"xla" -> the batched ADMM loop, "fused" -> the fused
+    ADMM kernel (`ops/admm_fused.py`) on the dense A (`constraint_dense`);
+    `kkt_dtype` must be "f32".
     """
 
     dt: float = 0.06
@@ -343,6 +344,48 @@ def constraint_bounds(cfg: MPCConfig, stage: MPCStageParams, dtype=torch.float32
     u = torch.cat([flat(u1), flat(u2), flat(u3)], dim=-1)
     rho = torch.cat([flat(rho1), flat(rho2), flat(rho3)], dim=-1)
     return l, u, rho
+
+
+def constraint_dense(cfg: MPCConfig, stage: MPCStageParams, dtype=torch.float32):
+    """A as a dense [..., m, n] matrix, for the fused ADMM kernel
+    (`ops/admm_fused.py`). A is block-local in 3-wide variable groups, so this
+    is one scatter of three kinds of blocks: the identity on the force rows,
+    the cone block D R_k^T [5, 3] of each (interval, contact, corner), and the
+    position block R^T [3, 3] of each slot."""
+    T, nc, ncor, K = cfg.T, cfg.n_contacts, cfg.n_corners, cfg.n_slots
+    tcc = T * nc * ncor
+    tcc3, tcc5 = cfg.n_forces, tcc * 5
+    n, m = cfg.n_vars, cfg.n_con
+    device = stage.slot_rot.device
+    lead = stage.slot_rot.shape[:-4]
+
+    def ar(k):
+        return torch.arange(k, device=device)
+
+    rows_f = ar(tcc3)
+    # cone: row tcc3 + 5 k + d, column 3 k + c, value C[t, i, d, c] for k = (t, i, j)
+    rows_c = (tcc3 + ar(tcc)[:, None, None] * 5 + ar(5)[None, :, None]).expand(tcc, 5, 3)
+    cols_c = (ar(tcc)[:, None, None] * 3 + ar(3)[None, None, :]).expand(tcc, 5, 3)
+    # position: row tcc3 + tcc5 + 3 s + a, column tcc3 + 3 s + b, value R[s, b, a]
+    nslot = nc * K
+    rows_p = (tcc3 + tcc5 + ar(nslot)[:, None, None] * 3 + ar(3)[None, :, None]).expand(nslot, 3, 3)
+    cols_p = (tcc3 + ar(nslot)[:, None, None] * 3 + ar(3)[None, None, :]).expand(nslot, 3, 3)
+    flat_idx = torch.cat([rows_f * n + rows_f, (rows_c * n + cols_c).reshape(-1), (rows_p * n + cols_p).reshape(-1)])
+
+    C = _cone_coeff(cfg, stage, dtype)  # [..., T, nc, 5, 3], the same for every corner
+    blocks_cone = C[..., :, :, None, :, :].expand(lead + (T, nc, ncor, 5, 3))
+    blocks_pos = stage.slot_rot.to(dtype).transpose(-1, -2)
+    values = torch.cat(
+        [
+            torch.ones(lead + (tcc3,), dtype=dtype, device=device),
+            blocks_cone.reshape(lead + (-1,)),
+            blocks_pos.reshape(lead + (-1,)),
+        ],
+        dim=-1,
+    )
+    A = torch.zeros(lead + (m * n,), dtype=dtype, device=device)
+    A[..., flat_idx] = values
+    return A.reshape(lead + (m, n))
 
 
 def ata_blocks(cfg: MPCConfig, stage: MPCStageParams, rho, dtype=torch.float32):

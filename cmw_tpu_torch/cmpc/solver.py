@@ -15,14 +15,18 @@ solve runs eagerly:
        M^-1 by the inverse kernel (`ops/spd_inverse.py`) or plain Cholesky,
        applied as a batched matmul or by the packed symv kernel;
   3. `sqp_iters` SQP iterations, each `admm_iters` ADMM iterations followed
-     by the exact quadratic line search on the l1 merit.
+     by the exact quadratic line search on the l1 merit. With
+     `admm_impl="fused"` the dense branch runs each SQP iteration's ADMM loop
+     as one launch of the fused ADMM kernel (`ops/admm_fused.py`) on the dense
+     constraint matrix (`formulation.constraint_dense`).
 
 Profiler spans `mpc.factor`, `mpc.linearize`, `mpc.admm` and
 `mpc.line_search` mark the phases for `torch.profiler`.
 
-Unknown option strings raise ValueError. `admm_impl="fused"` (the fused
-ADMM kernel) and `kkt_dtype` other than "f32" raise NotImplementedError on
-the dense branch; the Riccati branch ignores those knobs, as in JAX.
+Unknown option strings raise ValueError. `kkt_dtype` other than "f32"
+raises NotImplementedError on the dense branch; the Riccati branch ignores
+`admm_impl` and `kkt_dtype`, as in JAX. `admm_impl="auto"` is the batched
+loop ("xla"), as in JAX.
 """
 
 from __future__ import annotations
@@ -37,6 +41,7 @@ from cmw_tpu_torch.cmpc import formulation as F
 from cmw_tpu_torch.cmpc.qp import ADMMState, admm_solve, spd_inverse
 from cmw_tpu_torch.cmpc.riccati import riccati_apply, riccati_factor
 from cmw_tpu_torch.ops import spd_inverse as ops_spd_inverse
+from cmw_tpu_torch.ops.admm_fused import admm_fused
 from cmw_tpu_torch.ops.symv import BLK, pack_symmetric
 
 KKT_IMPLS = ("auto", "riccati", "dense")
@@ -87,15 +92,13 @@ class CentroidalMPCSolver:
         _check("kkt_dtype", cfg.kkt_dtype, KKT_DTYPES)
         self.cfg = cfg
         self.use_riccati = cfg.kkt_impl in ("auto", "riccati")
-        if not self.use_riccati:
-            if cfg.admm_impl == "fused":
-                raise NotImplementedError("admm_impl='fused' (the fused ADMM kernel) is not ported yet")
-            if cfg.kkt_dtype != "f32":
-                raise NotImplementedError("only kkt_dtype='f32' is supported: the bf16 KKT is retired")
+        self.use_fused = not self.use_riccati and cfg.admm_impl == "fused"
+        if not self.use_riccati and cfg.kkt_dtype != "f32":
+            raise NotImplementedError("only kkt_dtype='f32' is supported: the bf16 KKT is retired")
 
     # -- warm start -----------------------------------------------------------
 
-    def cold_start(self, batch: int, *, device=None, dtype=torch.float32) -> WarmStart:
+    def cold_start(self, batch: int, *, device="cuda", dtype=torch.float32) -> WarmStart:
         cfg = self.cfg
         return WarmStart(
             z=torch.zeros((batch, cfg.n_vars), dtype=dtype, device=device),
@@ -193,7 +196,7 @@ class CentroidalMPCSolver:
             xupd = cfg.xupdate_impl
             if xupd == "auto":
                 xupd = "symv" if device.type == "cuda" else "dense"
-            use_symv = xupd == "symv"
+            use_symv = xupd == "symv" and not self.use_fused  # the fused kernel takes the dense minv
 
             def res_item(p, zz):
                 return F.residuals(cfg, p, zz)
@@ -210,13 +213,23 @@ class CentroidalMPCSolver:
                 minv = inv((H + cfg.admm_sigma * eye + ata).contiguous())
                 return minv, (pack_symmetric(_pad_to_blocks(minv)) if use_symv else None)
 
-            def run_admm(kkt, q, z, zc, y):
-                minv, packed = kkt
-                return admm_solve(
-                    minv, q, matvec, rmatvec, l, u, rho, ADMMState(z, zc, y),
-                    iters=cfg.admm_iters, sigma=cfg.admm_sigma, alpha=cfg.admm_alpha,
-                    minv_packed=packed,
-                )
+            if self.use_fused:
+                A_dense = F.constraint_dense(cfg, stage, dtype)
+
+                def run_admm(kkt, q, z, zc, y):
+                    x, zc, y = admm_fused(
+                        kkt[0], A_dense, q, l, u, rho, z, zc, y,
+                        iters=cfg.admm_iters, sigma=cfg.admm_sigma, alpha=cfg.admm_alpha,
+                    )
+                    return ADMMState(x, zc, y), (matvec(x) - zc).abs().amax(dim=-1)
+            else:
+                def run_admm(kkt, q, z, zc, y):
+                    minv, packed = kkt
+                    return admm_solve(
+                        minv, q, matvec, rmatvec, l, u, rho, ADMMState(z, zc, y),
+                        iters=cfg.admm_iters, sigma=cfg.admm_sigma, alpha=cfg.admm_alpha,
+                        minv_packed=packed,
+                    )
 
             def h_mv(H, z):
                 return torch.matmul(H, z[..., None])[..., 0]

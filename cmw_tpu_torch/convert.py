@@ -5,7 +5,8 @@ the contact plan and the warm start. These converters carry that state
 between the JAX package and the port: each `*_from_numpy` takes the JAX
 container (its NamedTuple, or a dict of the same field names) holding numpy
 arrays with a leading batch axis, and returns the port's container of
-tensors on the given device and dtype. `solution_to_numpy` goes back, to a
+tensors on the given device (the card unless the caller passes another) and
+dtype. `solution_to_numpy` goes back, to a
 dict of numpy arrays. `config_from_dict` inverts `dataclasses.asdict` of the
 JAX `MPCConfig` (lists, as from JSON, become tuples again).
 """
@@ -38,19 +39,19 @@ def _convert(cls, obj, device, dtype, nested=None):
     return cls(**fields)
 
 
-def stage_from_numpy(stage, *, device=None, dtype=torch.float32) -> MPCStageParams:
+def stage_from_numpy(stage, *, device="cuda", dtype=torch.float32) -> MPCStageParams:
     return _convert(MPCStageParams, stage, device, dtype)
 
 
-def plan_from_numpy(plan, *, device=None, dtype=torch.float32) -> ContactPlan:
+def plan_from_numpy(plan, *, device="cuda", dtype=torch.float32) -> ContactPlan:
     return _convert(ContactPlan, plan, device, dtype)
 
 
-def params_from_numpy(params, *, device=None, dtype=torch.float32) -> MPCParams:
+def params_from_numpy(params, *, device="cuda", dtype=torch.float32) -> MPCParams:
     return _convert(MPCParams, params, device, dtype, nested={"stage": stage_from_numpy})
 
 
-def warm_from_numpy(warm, *, device=None, dtype=torch.float32) -> WarmStart:
+def warm_from_numpy(warm, *, device="cuda", dtype=torch.float32) -> WarmStart:
     return _convert(WarmStart, warm, device, dtype)
 
 

@@ -26,7 +26,7 @@ class ContactPlan(NamedTuple):
     valid: torch.Tensor  # [..., nc, P] {0., 1.}
 
 
-def empty_plan(nc: int = 2, P: int = 16, *, device=None, dtype=torch.float32) -> ContactPlan:
+def empty_plan(nc: int = 2, P: int = 16, *, device="cuda", dtype=torch.float32) -> ContactPlan:
     eye = torch.eye(3, dtype=dtype, device=device).expand(nc, P, 3, 3).clone()
     return ContactPlan(
         act=torch.full((nc, P), BIG_TIME, dtype=dtype, device=device),
@@ -140,10 +140,11 @@ def make_alternating_gait(
     first_swing: int = 0,
     z: float = 0.0,
     *,
-    device=None,
+    device="cuda",
     dtype=torch.float32,
 ) -> ContactPlan:
-    """Host-side scripted alternating-foot gait (numpy -> tensors on `device`).
+    """Host-side scripted alternating-foot gait (numpy -> tensors on `device`,
+    the card unless the caller passes another).
 
     Both feet start in stance at +-step_width/2. From t_first_lift, feet
     alternate swings of `single_support` seconds separated by

@@ -4,6 +4,8 @@
                Pallas `spd_inverse_pallas`
   symv         packed symmetric matvec (csrc/symv.cu), replaces the Pallas
                `symv_packed`
+  admm_fused   all ADMM iterations of one SQP step (csrc/admm_fused.cu),
+               replaces the Pallas `admm_fused_pallas`
   _build       nvcc build of csrc/*.cu and the ctypes binding
 
 Each wrapper launches its kernel on a CUDA tensor (or raises), uses its plain

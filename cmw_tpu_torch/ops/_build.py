@@ -2,14 +2,16 @@
 
 Every `csrc/*.cu` file is compiled by `nvcc` for `sm_90a` into one shared
 library with a plain C interface, at first use, into `csrc/build/` (listed in
-`.gitignore`). The library's name carries a hash of the sources and flags, so
-an edited source builds anew and a stale library is never loaded. Nothing
-here runs at import: the CPU tests import every module and have no `nvcc`.
+`.gitignore`). The sources compile in parallel, one `nvcc` each, all started
+together, and are then linked into the library. The library's name carries a
+hash of the sources and flags, so an edited source builds anew and a stale
+library is never loaded. Nothing here runs at import: the CPU tests import
+every module and have no `nvcc`.
 
-Each C entry point takes device pointers, sizes and a stream, launches on
-that stream and returns `cudaGetLastError()`; `kernel()` hands out the
-ctypes function with its argument types declared, and `check()` raises on a
-non-zero code.
+Each C entry point takes device pointers, sizes, scalars and a stream,
+launches on that stream and returns `cudaGetLastError()`; `kernel()` hands out
+the ctypes function with its argument types declared, and `check()` raises on
+a non-zero code.
 """
 
 from __future__ import annotations
@@ -26,7 +28,7 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC / "build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-O3", "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
+    "-O3", "-std=c++17", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",  # registers / shared memory / spills, kept in <library>.log
 )
 
@@ -56,6 +58,18 @@ def _library_path() -> Path:
     return BUILD_DIR / f"libcmw_kernels_{h.hexdigest()[:16]}.so"
 
 
+def _run_all(cmds: list[list[str]]) -> tuple[list[str], list[str]]:
+    """Run the commands in parallel; wait for every one. Returns (logs, failures)."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True) for c in cmds]
+    logs, failed = [], []
+    for cmd, proc in zip(cmds, procs):
+        out, _ = proc.communicate()
+        logs.append(f"$ {' '.join(cmd)}\n{out}")
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed ({proc.returncode}):\n{logs[-1]}")
+    return logs, failed
+
+
 def _build() -> Path:
     global build_seconds
     so = _library_path()
@@ -64,15 +78,22 @@ def _build() -> Path:
         return so
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources())]
+    nvcc = _nvcc()
+    objs = [tmp.with_name(f"{tmp.name}.{src.stem}.o") for src in sources()]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True, check=False)
+    try:
+        logs, failed = _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(s)] for s, o in zip(sources(), objs)])
+        if not failed:
+            link_logs, failed = _run_all([[nvcc, "-shared", "-o", str(tmp), *map(str, objs)]])
+            logs += link_logs
+    finally:
+        for o in objs:
+            o.unlink(missing_ok=True)
     build_seconds = time.perf_counter() - t0
-    log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
+    if failed:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{log}")
-    so.with_suffix(".log").write_text(log)
+        raise RuntimeError("\n".join(failed))
+    so.with_suffix(".log").write_text("\n".join(logs))
     os.replace(tmp, so)
     return so
 
@@ -85,10 +106,12 @@ def library() -> ctypes.CDLL:
     return _lib
 
 
-def kernel(name: str, n_ptrs: int, n_ints: int):
-    """C entry `name(ptr * n_ptrs, int * n_ints, stream) -> int`."""
+def kernel(name: str, n_ptrs: int, n_ints: int, n_floats: int = 0):
+    """C entry `name(ptr * n_ptrs, int * n_ints, float * n_floats, stream) -> int`."""
     fn = getattr(library(), name)
-    fn.argtypes = [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints + [ctypes.c_void_p]
+    fn.argtypes = (
+        [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints + [ctypes.c_float] * n_floats + [ctypes.c_void_p]
+    )
     fn.restype = ctypes.c_int
     return fn
 

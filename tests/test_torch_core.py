@@ -47,17 +47,17 @@ def test_centroidal_dynamics_and_corners_match_jax():
 @pytest.mark.parametrize("kw", [dict(), dict(n_steps=3, first_swing=1, step_length=0.2, nc_phases=4)])
 def test_gait_and_snap_match_jax(kw):
     jplan = jcon.snap_to_grid(jcon.make_alternating_gait(**kw), 0.06)
-    tplan = tcon.snap_to_grid(tcon.make_alternating_gait(**kw), 0.06)
+    tplan = tcon.snap_to_grid(tcon.make_alternating_gait(device="cpu", **kw), 0.06)
     for field in jplan._fields:
         np.testing.assert_array_equal(getattr(tplan, field).numpy(), np.asarray(getattr(jplan, field)), field)
-    f64 = tcon.make_alternating_gait(dtype=torch.float64, **kw)
+    f64 = tcon.make_alternating_gait(device="cpu", dtype=torch.float64, **kw)
     assert f64.act.dtype == torch.float64
 
 
 def test_empty_plan_and_converter_match_jax():
     jplan = jcon.empty_plan(nc=2, P=8)
-    tplan = tcon.empty_plan(nc=2, P=8)
-    back = convert.plan_from_numpy({k: np.asarray(v) for k, v in jplan._asdict().items()})
+    tplan = tcon.empty_plan(nc=2, P=8, device="cpu")
+    back = convert.plan_from_numpy({k: np.asarray(v) for k, v in jplan._asdict().items()}, device="cpu")
     for field in jplan._fields:
         np.testing.assert_array_equal(getattr(tplan, field).numpy(), np.asarray(getattr(jplan, field)), field)
         np.testing.assert_array_equal(getattr(back, field).numpy(), np.asarray(getattr(jplan, field)), field)

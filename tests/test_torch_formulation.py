@@ -53,7 +53,7 @@ def case(request):
     jcfg = JF.ergocub_mpc_config(horizon=request.param)
     tcfg = convert.config_from_dict(dataclasses.asdict(jcfg))
     jp = jax.tree_util.tree_map(lambda *a: jnp.stack(a), *[jax_params(jcfg, t, p) for t, p in zip(T0S, PUSHES)])
-    tp = convert.params_from_numpy(jax.tree_util.tree_map(np.asarray, jp))
+    tp = convert.params_from_numpy(jax.tree_util.tree_map(np.asarray, jp), device="cpu")
     rng = np.random.default_rng(0)
     # a physically scaled point: gravity-ish forces and nominal positions, plus noise
     Fg = jax.vmap(lambda s: JF.nominal_force_guess(jcfg, s))(jp.stage)
@@ -124,7 +124,7 @@ def test_mpc_stage_params_matches_jax(case):
             err_msg=field,
         )
     # the port also takes a per-item t0 tensor and a batched plan
-    plan = tcontacts.snap_to_grid(tcontacts.make_alternating_gait(n_steps=8), tcfg.dt)
+    plan = tcontacts.snap_to_grid(tcontacts.make_alternating_gait(n_steps=8, device="cpu"), tcfg.dt)
     plan_b = type(plan)(*[a.expand((2,) + a.shape) for a in plan])
     stage_b = tcontacts.mpc_stage_params(plan_b, torch.tensor(T0S), tcfg.T, tcfg.dt, tcfg.n_slots)
     for field in jp.stage._fields:

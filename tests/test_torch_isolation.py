@@ -15,7 +15,7 @@ from cmw_tpu_torch.core import contacts
 torch.set_num_threads(1)
 assert not torch.backends.cuda.matmul.allow_tf32 and not torch.backends.cudnn.allow_tf32
 cfg = ergocub_mpc_config(horizon=0.6, kkt_impl="dense")
-plan = contacts.snap_to_grid(contacts.make_alternating_gait(n_steps=8), cfg.dt)
+plan = contacts.snap_to_grid(contacts.make_alternating_gait(n_steps=8, device="cpu"), cfg.dt)
 stage = contacts.mpc_stage_params(plan, 1.02, cfg.T, cfg.dt, cfg.n_slots)
 params = MPCParams(
     x0=torch.tensor([[0.0, 0.0, 0.7, 0, 0, 0, 0, 0, 0]]),
@@ -27,7 +27,7 @@ params = MPCParams(
 )
 for kkt in ("dense", "riccati"):
     solver = CentroidalMPCSolver(ergocub_mpc_config(horizon=0.6, kkt_impl=kkt))
-    sol = solver.solve(params, solver.cold_start(1))
+    sol = solver.solve(params, solver.cold_start(1, device="cpu"))
     assert bool(torch.isfinite(sol.z).all()) and float(sol.prim_res[0]) < 1e-2
 import cmw_tpu_torch.convert
 loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "cmw_tpu"))

@@ -137,7 +137,7 @@ def test_admm_solve_matches_jax(xupdate):
     )
 
     tcfg = convert.config_from_dict(dataclasses.asdict(cfg))
-    stage = convert.stage_from_numpy({k: np.asarray(v)[None] for k, v in jp.stage._asdict().items()})
+    stage = convert.stage_from_numpy({k: np.asarray(v)[None] for k, v in jp.stage._asdict().items()}, device="cpu")
     op = TF.constraint_op(tcfg, stage)
     tl, tu, trho = (torch.tensor(np.asarray(a))[None] for a in (l, u, rho))
     tminv = torch.tensor(minv)[None]

@@ -18,7 +18,7 @@ COST_RTOL = 0.01
 
 def standing_plan():
     """Both feet in contact forever at +-0.08 m."""
-    plan = contacts.empty_plan(nc=2, P=8)
+    plan = contacts.empty_plan(nc=2, P=8, device="cpu")
     act, deact, pos, valid = plan.act.clone(), plan.deact.clone(), plan.pos.clone(), plan.valid.clone()
     act[:, 0] = 0.0
     deact[:, 0] = 1e6
@@ -51,12 +51,12 @@ def test_dense_solve_matches_oracle(scenario):
     if scenario == "standing":
         p = make_params(cfg, standing_plan(), 0.0, [0.03, 0.01, 0.69], 0.0, [0.0, 0.0, 0.0])
     else:
-        plan = contacts.snap_to_grid(contacts.make_alternating_gait(n_steps=8), cfg.dt)
+        plan = contacts.snap_to_grid(contacts.make_alternating_gait(n_steps=8, device="cpu"), cfg.dt)
         p = make_params(cfg, plan, 1.02, [0.0, 0.0, 0.7], 0.08, [0.0, 1.0, 0.0])
     solver = CentroidalMPCSolver(cfg)
     batched = MPCParams(*[a[None] for a in p[:3]], type(p.stage)(*[a[None] for a in p.stage]),
                         p.ext_force[None], p.ext_torque[None])
-    sol = solver.solve(batched, solver.cold_start(1))
+    sol = solver.solve(batched, solver.cold_start(1, device="cpu"))
     z_o, c_o, res = oracle.solve_oracle(cfg, p)
     assert res.status == 0, res.message
     cost = float(sol.cost[0])

@@ -52,7 +52,7 @@ def port_case(horizon, pushes, dtype):
     jcfg = JF.ergocub_mpc_config(horizon=horizon)
     jp = jax.tree_util.tree_map(lambda *a: jnp.stack(a), *[jax_params(jcfg, p) for p in pushes])
     tcfg = convert.config_from_dict(dataclasses.asdict(jcfg))
-    return jcfg, jp, tcfg, convert.params_from_numpy(jax.tree_util.tree_map(np.asarray, jp), dtype=dtype)
+    return jcfg, jp, tcfg, convert.params_from_numpy(jax.tree_util.tree_map(np.asarray, jp), device="cpu", dtype=dtype)
 
 
 @pytest.mark.parametrize("horizon", [1.2, 0.6])

@@ -2,7 +2,8 @@
 
 B = 2 walking scenarios with lateral pushes (0, +1.0, 0) and (0, -1.0, 0),
 a cold solve at t0 = 1.02 and one warm-started tick at t0 = 1.08, on both
-KKT branches, f32 on the CPU.
+KKT branches and on the dense branch's fused ADMM loop (JAX runs its fused
+Pallas kernel in interpret mode), f32 on the CPU.
 """
 
 import dataclasses
@@ -20,6 +21,7 @@ from cmw_tpu.core.centroidal import pack_state
 from cmw_tpu_torch import convert
 from cmw_tpu_torch.cmpc import CentroidalMPCSolver, ergocub_mpc_config
 from cmw_tpu_torch.core import contacts
+from cmw_tpu_torch.ops import admm_fused as K5
 from cmw_tpu_torch.ops import spd_inverse as K3
 from cmw_tpu_torch.ops import symv as K4
 
@@ -37,6 +39,7 @@ PUSHES = ((0.0, 1.0, 0.0), (0.0, -1.0, 0.0))
 CASES = {
     "dense": dict(kkt_impl="dense", inverse_impl="xla"),
     "dense_symv": dict(kkt_impl="dense", inverse_impl="xla", xupdate_impl="symv"),
+    "dense_fused": dict(kkt_impl="dense", inverse_impl="xla", admm_impl="fused"),
     "riccati": dict(),
 }
 
@@ -58,7 +61,7 @@ def jax_params(cfg, t0, push):
 
 def batch(cfg, t0, pushes=PUSHES):
     jp = jax.tree_util.tree_map(lambda *a: jnp.stack(a), *[jax_params(cfg, t0, p) for p in pushes])
-    return jp, convert.params_from_numpy(jax.tree_util.tree_map(np.asarray, jp))
+    return jp, convert.params_from_numpy(jax.tree_util.tree_map(np.asarray, jp), device="cpu")
 
 
 def assert_same_solution(got, want):
@@ -78,10 +81,10 @@ def test_solve_matches_jax(name):
     js, ts = JaxSolver(jcfg), CentroidalMPCSolver(tcfg)
     jsolve = jax.jit(jax.vmap(js.solve))
 
-    launches = (K3.launches, K4.launches)
+    launches = (K3.launches, K4.launches, K5.launches)
     jp, tp = batch(jcfg, 1.02)
     jsol = jsolve(jp, jax.vmap(lambda _: js.cold_start())(jnp.arange(len(PUSHES))))
-    tsol = ts.solve(tp, ts.cold_start(len(PUSHES)))
+    tsol = ts.solve(tp, ts.cold_start(len(PUSHES), device="cpu"))
     assert_same_solution(tsol, jsol)
 
     # one warm-started receding-horizon tick, from each package's own state
@@ -90,9 +93,10 @@ def test_solve_matches_jax(name):
     tsol2 = ts.solve(tp2, ts.warm_from(tp2, tsol))
     assert_same_solution(tsol2, jsol2)
     # and from the JAX warm start carried across
-    warm = convert.warm_from_numpy({k: np.asarray(v) for k, v in jax.vmap(js.warm_from)(jp2, jsol)._asdict().items()})
+    warm = convert.warm_from_numpy({k: np.asarray(v) for k, v in jax.vmap(js.warm_from)(jp2, jsol)._asdict().items()},
+                                   device="cpu")
     assert_same_solution(ts.solve(tp2, warm), jsol2)
-    assert (K3.launches, K4.launches) == launches  # CPU tensors never reach a kernel
+    assert (K3.launches, K4.launches, K5.launches) == launches  # CPU tensors never reach a kernel
 
 
 @pytest.mark.parametrize("kkt_impl", ["dense", "riccati"])
@@ -102,7 +106,7 @@ def test_lateral_push_saturates_footstep_box(kkt_impl):
     cfg = ergocub_mpc_config(kkt_impl=kkt_impl)
     _, tp = batch(JF.ergocub_mpc_config(), 1.02, pushes=((0.0, 1.2, 0.0),))
     solver = CentroidalMPCSolver(cfg)
-    sol = solver.solve(tp, solver.cold_start(1))
+    sol = solver.solve(tp, solver.cold_start(1, device="cpu"))
     stage = tp.stage
     adj = (stage.slot_adjustable * stage.slot_valid)[..., None]
     d = ((sol.positions - stage.slot_pos_nom) * adj)[0]
@@ -118,10 +122,10 @@ def test_empty_plan_stays_finite(kkt_impl):
     """No contacts at all: free fall, zero forces, finite everything."""
     cfg = ergocub_mpc_config(kkt_impl=kkt_impl)
     _, tp = batch(JF.ergocub_mpc_config(), 1.02, pushes=((0.0, 0.0, 0.0),))
-    stage = contacts.mpc_stage_params(contacts.empty_plan(), 1.02, cfg.T, cfg.dt, cfg.n_slots)
+    stage = contacts.mpc_stage_params(contacts.empty_plan(device="cpu"), 1.02, cfg.T, cfg.dt, cfg.n_slots)
     tp = tp._replace(stage=type(stage)(*[a[None] for a in stage]))
     solver = CentroidalMPCSolver(cfg)
-    sol = solver.solve(tp, solver.cold_start(1))
+    sol = solver.solve(tp, solver.cold_start(1, device="cpu"))
     for name, value in sol._asdict().items():
         assert bool(torch.isfinite(value).all()), name
     assert float(sol.forces.abs().max()) == 0.0
@@ -131,12 +135,11 @@ def test_unknown_and_unported_options_raise():
     for field in ("kkt_impl", "inverse_impl", "xupdate_impl", "admm_impl", "kkt_dtype"):
         with pytest.raises(ValueError, match=field):
             CentroidalMPCSolver(ergocub_mpc_config(**{field: "nonsense"}))
-    with pytest.raises(NotImplementedError):
-        CentroidalMPCSolver(ergocub_mpc_config(kkt_impl="dense", admm_impl="fused"))
+    assert CentroidalMPCSolver(ergocub_mpc_config(kkt_impl="dense", admm_impl="fused")).use_fused
     with pytest.raises(NotImplementedError):
         CentroidalMPCSolver(ergocub_mpc_config(kkt_impl="dense", kkt_dtype="bf16"))
     # the Riccati branch ignores the dense-path knobs, as in JAX
-    CentroidalMPCSolver(ergocub_mpc_config(admm_impl="fused", kkt_dtype="bf16"))
+    assert not CentroidalMPCSolver(ergocub_mpc_config(admm_impl="fused", kkt_dtype="bf16")).use_fused
 
 
 def test_refactor_every_sqp_solves():
@@ -148,7 +151,26 @@ def test_refactor_every_sqp_solves():
         cfg_q = ergocub_mpc_config(horizon=0.6, kkt_impl=kkt_impl)
         cfg_e = dataclasses.replace(cfg_q, refactor_every_sqp=True)
         sq, se = CentroidalMPCSolver(cfg_q), CentroidalMPCSolver(cfg_e)
-        sol_q = sq.solve(tp, sq.cold_start(1))
-        sol_e = se.solve(tp, se.cold_start(1))
+        sol_q = sq.solve(tp, sq.cold_start(1, device="cpu"))
+        sol_e = se.solve(tp, se.cold_start(1, device="cpu"))
         assert np.isfinite(float(sol_e.cost)) and float(sol_e.prim_res) < PRIM_MAX
         assert float(sol_e.cost) <= 1.1 * float(sol_q.cost)
+
+
+def test_entry_points_default_to_the_card():
+    """Without `device`, the entry points put their tensors on the card; on a
+    machine without one they raise rather than fall back to the CPU."""
+    solver = CentroidalMPCSolver(ergocub_mpc_config())
+    plan_np = {k: np.asarray(v) for k, v in jcontacts.make_alternating_gait(n_steps=2)._asdict().items()}
+    calls = (
+        lambda: solver.cold_start(1),
+        lambda: contacts.make_alternating_gait(),
+        lambda: contacts.empty_plan(),
+        lambda: convert.plan_from_numpy(plan_np),
+    )
+    for call in calls:
+        if torch.cuda.is_available():
+            assert all(t.device.type == "cuda" for t in call())
+        else:
+            with pytest.raises((AssertionError, RuntimeError)):  # torch: "not compiled with CUDA" / no device
+                call()
