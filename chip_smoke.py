@@ -11,8 +11,11 @@ calls, and checks it:
   1. the card's name and power limit; the kernels' build from csrc/*.cu (one
      nvcc per source, all started together);
   2. each hand-written kernel against its plain PyTorch twin on the card:
-     the SPD inverse (||I - M X||_inf < 1e-4 on real walking KKT matrices
-     and on a badly scaled random SPD matrix), the packed symv (rtol 2e-5 /
+     the SPD inverse (||I - M X||_inf < 1e-4 and agreement with the twin
+     within INV_RTOL max|X| on real walking KKT matrices, on a badly scaled
+     random SPD matrix and at the ragged sizes n in {1, 24, 33, 100, 504} at
+     B in {1, 8}; the residual on 8 items of the B = 512 walking-KKT
+     inverse), the packed symv (rtol 2e-5 /
      atol 1e-4) and the fused ADMM loop on real walking QPs (minv from the
      SPD-inverse kernel, A from constraint_dense, q from the cold-start
      linearisation) at B = 4 and B = 512, iters = 24, for each operand
@@ -31,8 +34,9 @@ calls, and checks it:
      prim_res < 1e-2; the bench chains of the three paths against each other;
   7. timings (printed, not asserted): each kernel at B = 1 and B = 512 beside
      its bound, its plain twin and, where one exists, the one PyTorch call
-     that computes the same function; each path's B = 1 warm tick and
-     B = 512 x KB = 4 rate.
+     that computes the same function; one torch.profiler pass over an SPD
+     inverse at B = 1 and at B = 512, with the device time and count of each
+     of its kernels; each path's B = 1 warm tick and B = 512 x KB = 4 rate.
 
 It imports nothing of JAX. Without a CUDA device it fails. The last two
 lines are the kernels' JSON record and {"ok": true, "device": {...}}.
@@ -57,6 +61,11 @@ from cmw_tpu_torch.ops import symv as K4
 
 T0 = 1.02  # left foot swinging: its next footstep is adjustable
 RESID_TOL = 1e-4  # ||I - M X||_inf, the inverse's done-check
+INV_RTOL = 1e-4  # kernel vs twin, atol INV_RTOL * max|X| (tests/test_torch_ops.py)
+K3_SIZES = (1, 24, 33, 100, 504)  # one tile, full + 1-wide, ragged 4-wide last tile, production n
+# K3's kernels by name in csrc/spd_inverse.cu, with the stage each runs
+K3_STAGES = (("diagonal_kernel", "diagonal factor"), ("panel_kernel", "panel"), ("trailing_kernel", "trailing update"),
+             ("triinv_kernel", "triangular inverse"), ("output_kernel", "output S X^T X S"))
 SYMV_RTOL, SYMV_ATOL = 2e-5, 1e-4  # f32 sums in another order (tests/test_ops.py:138)
 ADMM_ITERS = 24  # the production admm_iters
 # Fused ADMM kernel vs twin, 24 iterations: per scenario, max |diff| /
@@ -152,6 +161,51 @@ def cuda_ms(fn, reps):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def scaled_spd(B, n, gen, device="cuda"):
+    """A badly scaled SPD matrix (tests/test_torch_ops.py scaled_spd, drawn on the card)."""
+    A = torch.randn(B, n, n, device=device, generator=gen) * 0.02
+    H = A @ A.transpose(1, 2) + torch.eye(n, device=device)
+    k = min(n, 50)
+    H[:, :k, :k] += 1e4 * torch.eye(k, device=device)  # rho_eq-like rows
+    return H
+
+
+def check_spd_inverse(name, M):
+    """K3 against its twin: the residual of both and the largest difference;
+    fails unless the kernel meets the done-check and agrees with the twin."""
+    X = K3.spd_inverse(M)
+    torch.cuda.synchronize()
+    Xr = K3.spd_inverse_ref(M)
+    torch.cuda.synchronize()
+    rk, rr = resid(M, X), resid(M, Xr)
+    err = float((X - Xr).abs().max())
+    rel = err / float(Xr.abs().max())
+    print(f"phase 2 K3 spd_inverse {name} {list(M.shape)}: ||I-MX||_inf kernel {rk:.3e} twin {rr:.3e}; "
+          f"max|X-Xref| {err:.3e} (rel {rel:.3e})")
+    require(rk < RESID_TOL, f"K3 residual {rk} >= {RESID_TOL} on {name}")
+    require(rel <= INV_RTOL, f"K3 differs from its twin by {rel} of max|X| on {name}")
+    return err
+
+
+def profile_spd_inverse(M):
+    """One torch.profiler pass over a K3 call: {stage: (launches, device ms)}."""
+    from torch.profiler import ProfilerActivity, profile
+
+    K3.spd_inverse(M)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        K3.spd_inverse(M)
+        torch.cuda.synchronize()
+    stages = {}
+    for ev in prof.key_averages():
+        for kernel, stage in K3_STAGES:
+            if f"{kernel}(" in ev.key:
+                us = getattr(ev, "self_device_time_total", None) or getattr(ev, "self_cuda_time_total", 0.0)
+                stages[stage] = (ev.count, us / 1e3)
+    require(len(stages) == len(K3_STAGES), f"K3 profile found only {sorted(stages)}")
+    return stages
 
 
 def bound(nbytes, flops):
@@ -288,26 +342,14 @@ def main():
 
     # --- 2. kernels vs plain twins on the card ------------------------------
     M_real, qp4 = cold_linearisation(cfg_dense, make_params(cfg_dense, lateral([-1.0, 0.0, 0.6, 1.2])))
-    rng = np.random.default_rng(0)
-    A = rng.normal(size=(4, 504, 504)).astype(np.float32) * 0.02
-    H = np.einsum("bij,bkj->bik", A, A) + np.eye(504, dtype=np.float32)
-    H[:, :50, :50] += 1e4 * np.eye(50, dtype=np.float32)  # rho_eq-like scale spread
-    M_rand = torch.tensor(H, device=dev)
-    errs = {"spd_inverse": 0.0, "symv_packed": 0.0, "admm_fused": 0.0}
-    for name, M in (("walking KKT", M_real), ("scaled random SPD", M_rand)):
-        X = K3.spd_inverse(M)
-        torch.cuda.synchronize()
-        Xr = K3.spd_inverse_ref(M)
-        torch.cuda.synchronize()
-        rk, rr = resid(M, X), resid(M, Xr)
-        err = float((X - Xr).abs().max())
-        rel = err / float(Xr.abs().max())
-        print(f"phase 2 K3 spd_inverse {name} [4, 504, 504]: ||I-MX||_inf kernel {rk:.3e} twin {rr:.3e}; "
-              f"max|X-Xref| {err:.3e} (rel {rel:.3e})")
-        require(rk < RESID_TOL, f"K3 residual {rk} >= {RESID_TOL} on {name}")
-        errs["spd_inverse"] = max(errs["spd_inverse"], err)
-
     gen = torch.Generator(device=dev).manual_seed(7)
+    errs = {"spd_inverse": 0.0, "symv_packed": 0.0, "admm_fused": 0.0}
+    for name, M in (("walking KKT", M_real), ("scaled random SPD", scaled_spd(4, 504, gen))):
+        errs["spd_inverse"] = max(errs["spd_inverse"], check_spd_inverse(name, M))
+    for n in K3_SIZES:  # the tiled kernel's masked edge
+        for B in (1, 8):
+            errs["spd_inverse"] = max(errs["spd_inverse"], check_spd_inverse(f"ragged n={n}", scaled_spd(B, n, gen)))
+
     P = torch.randn(512, 512, 512, device=dev, generator=gen)
     Msym = P @ P.transpose(1, 2) / 512
     packed = K4.pack_symmetric(Msym)
@@ -338,7 +380,12 @@ def main():
         make_params(cfg_dense, lateral(torch.linspace(-1.0, 1.0, B512)),
                     t0=T0 + cfg_dense.dt * (torch.arange(B512) % 8).float()),
     )
-    k5_args = {4: (Minv, *qp4), B512: (K3.spd_inverse(M512), *qp512)}
+    Minv512 = K3.spd_inverse(M512)
+    items = torch.arange(0, B512, B512 // 8, device=dev)
+    r512 = resid(M512[items], Minv512[items])
+    print(f"phase 2 K3 spd_inverse walking KKT [512, 504, 504], items {items.tolist()}: ||I-MX||_inf {r512:.3e}")
+    require(r512 < RESID_TOL, f"K3 residual {r512} >= {RESID_TOL} on the B = 512 walking KKT matrices")
+    k5_args = {4: (Minv, *qp4), B512: (Minv512, *qp512)}
     for B, args in k5_args.items():
         for mode, (tol_max, tol_median) in ADMM_TOL.items():
             got = K5.admm_fused(*args, iters=ADMM_ITERS, mxu_dtype=mode)
@@ -424,6 +471,12 @@ def main():
         lib_s = "none" if lib is None else f"{lib:.4f} ms"
         print(f"phase 7 time {name} B={B}: kernel {ms:.4f} ms, plain twin {plain:.4f} ms, library {lib_s}, "
               f"bound {b_ms:.4f} ms ({b_by}), kernel at {100 * b_ms / ms:.1f} % of the bound {tag}")
+    for B in (1, B512):  # where K3's time goes, kernel by kernel
+        stages = profile_spd_inverse(M_real[:1].expand(B, 504, 504).contiguous())
+        total = sum(ms for _, ms in stages.values())
+        for stage, (count, ms) in stages.items():
+            print(f"phase 7 profile spd_inverse B={B} {stage}: {count} launches, {ms:.4f} ms device "
+                  f"({100 * ms / total:.1f} %) {tag}")
     for name, solver, cfg in (("dense", dense, cfg_dense), ("fused", fused, cfg_fused), ("riccati", ric, cfg_ric)):
         _, t1 = tick_chain(solver, cfg, ticks=20)
         lat = np.array(t1[1:])  # warm-started ticks

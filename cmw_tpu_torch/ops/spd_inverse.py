@@ -3,8 +3,10 @@
 Counterpart of `cmw_tpu/ops/spd_inverse.py` (`spd_inverse_pallas`). On a
 CUDA tensor `spd_inverse` launches the hand-written kernel in
 `csrc/spd_inverse.cu` (Jacobi-scaled Cholesky, triangular inverse,
-S X^T X S; see the note at the top of that file). On a CPU tensor it uses
-the plain twin `spd_inverse_ref`, the same factorisation in PyTorch.
+S X^T X S, each cut into 32x32 tiles over many blocks: 2 ceil(n / 32) + 1
+launches from one C entry point; see the note at the top of that file). On
+a CPU tensor it uses the plain twin `spd_inverse_ref`, the same
+factorisation in PyTorch.
 
 The contract of both is accuracy: ||I - M X||_inf < 1e-4 on a real walking
 KKT matrix (the TPU kernel's done-check).
@@ -16,7 +18,7 @@ import torch
 
 from cmw_tpu_torch.ops import _build
 
-MAX_N = 1024  # the kernel's triangular inverse runs one thread per column
+MAX_N = 1696  # the triangular inverse holds an n x 33 column panel in 227 KB of shared memory
 launches = 0  # kernel launches in this process (the plain twin never counts)
 
 
@@ -47,11 +49,12 @@ def spd_inverse(M: torch.Tensor) -> torch.Tensor:
     out = torch.empty_like(M)
     if B == 0:
         return out
-    scratch = torch.empty_like(M)
-    fn = _build.kernel("cmw_spd_inverse", 3, 2)
+    scratch = torch.empty_like(M)  # X = L^-1
+    scale = torch.empty(B, n, device=M.device, dtype=M.dtype)  # Jacobi scale 1 / sqrt(m_ii)
+    fn = _build.kernel("cmw_spd_inverse", 4, 2)
     with torch.cuda.device(M.device):
         stream = torch.cuda.current_stream(M.device).cuda_stream
-        code = fn(M.data_ptr(), out.data_ptr(), scratch.data_ptr(), B, n, stream)
+        code = fn(M.data_ptr(), out.data_ptr(), scratch.data_ptr(), scale.data_ptr(), B, n, stream)
     _build.check("spd_inverse", code)
     global launches
     launches += 1

@@ -43,11 +43,12 @@ ADMM_RTOL, ADMM_ATOL, ADMM_ATOL_Y = 2e-4, 2e-4, 2e-3
 
 
 def scaled_spd(B, n, seed=0):
-    """The badly scaled SPD matrix of tests/test_ops.py:9-24."""
+    """The badly scaled SPD matrix of tests/test_ops.py:9-24, for any n."""
     rng = np.random.default_rng(seed)
     A = rng.normal(size=(B, n, n)).astype(np.float32) * 0.02
     H = np.einsum("bij,bkj->bik", A, A) + np.eye(n, dtype=np.float32)
-    H[:, :50, :50] += 1e4 * np.eye(50, dtype=np.float32)  # rho_eq-like rows
+    k = min(n, 50)
+    H[:, :k, :k] += 1e4 * np.eye(k, dtype=np.float32)  # rho_eq-like rows
     return H
 
 
@@ -174,6 +175,22 @@ def test_spd_inverse_kernel_matches_twin():
     torch.testing.assert_close(X, Xr, rtol=0, atol=INV_RTOL * float(Xr.abs().max()))
     with pytest.raises(TypeError):
         K3.spd_inverse(M.double())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [1, 8])
+@pytest.mark.parametrize("n", [1, 24, 33, 100])
+def test_spd_inverse_kernel_ragged_sizes(n, B):
+    """The tiled kernel's masked edge: one tile (1, 24), a full tile and a 1-wide
+    one (33), a 4-wide last tile (100)."""
+    dev = _cuda()
+    H = scaled_spd(B, n, seed=n)
+    M = torch.tensor(H, device=dev)
+    X = K3.spd_inverse(M)
+    torch.cuda.synchronize()
+    assert resid(H, X.cpu().numpy()) < RESID_TOL
+    Xr = K3.spd_inverse_ref(M)
+    torch.testing.assert_close(X, Xr, rtol=0, atol=INV_RTOL * float(Xr.abs().max()))
 
 
 @pytest.mark.cuda
