@@ -15,8 +15,9 @@ calls, and checks it:
      within INV_RTOL max|X| on real walking KKT matrices, on a badly scaled
      random SPD matrix and at the ragged sizes n in {1, 24, 33, 100, 504} at
      B in {1, 8}; the residual on 8 items of the B = 512 walking-KKT
-     inverse), the packed symv (rtol 2e-5 /
-     atol 1e-4) and the fused ADMM loop on real walking QPs (minv from the
+     inverse), the packed symv (rtol 2e-5 / atol 1e-4, at (B, nb) in
+     K4_SHAPES and on the packed walking-KKT inverse; two launches on the same
+     inputs bitwise equal) and the fused ADMM loop on real walking QPs (minv from the
      SPD-inverse kernel, A from constraint_dense, q from the cold-start
      linearisation) at B = 4 and B = 512, iters = 24, for each operand
      precision, within ADMM_TOL;
@@ -31,12 +32,17 @@ calls, and checks it:
   6. numerics sentinel: the card's dense solve vs the port's plain CPU solve,
      the card's Riccati and fused solves vs its dense solve and the fused vs
      the Riccati solve, each within |dcost| <= 0.005 (|cost| + 1) and
-     prim_res < 1e-2; the bench chains of the three paths against each other;
+     prim_res < 1e-2; the bench chains of the three paths against each other,
+     and the dense chain once more with the batched-matmul x-update (no K4)
+     against all three;
   7. timings (printed, not asserted): each kernel at B = 1 and B = 512 beside
-     its bound, its plain twin and, where one exists, the one PyTorch call
+     its bound (and, where bytes set it, the rate reached on those bytes),
+     its plain twin and, where one exists, the one PyTorch call
      that computes the same function; one torch.profiler pass over an SPD
-     inverse at B = 1 and at B = 512, with the device time and count of each
-     of its kernels; each path's B = 1 warm tick and B = 512 x KB = 4 rate.
+     inverse and over a packed symv at B = 1 and at B = 512, with the device
+     time and count of each of its kernels, and the device time of
+     torch.matmul on the unpacked matrix beside K4's; each path's B = 1 warm
+     tick and B = 512 x KB = 4 rate.
 
 It imports nothing of JAX. Without a CUDA device it fails. The last two
 lines are the kernels' JSON record and {"ok": true, "device": {...}}.
@@ -66,7 +72,11 @@ K3_SIZES = (1, 24, 33, 100, 504)  # one tile, full + 1-wide, ragged 4-wide last 
 # K3's kernels by name in csrc/spd_inverse.cu, with the stage each runs
 K3_STAGES = (("diagonal_kernel", "diagonal factor"), ("panel_kernel", "panel"), ("trailing_kernel", "trailing update"),
              ("triinv_kernel", "triangular inverse"), ("output_kernel", "output S X^T X S"))
+K4_STAGES = (("partials_kernel", "row and column partials"), ("reduce_kernel", "fixed-order reduce"))  # csrc/symv.cu
 SYMV_RTOL, SYMV_ATOL = 2e-5, 1e-4  # f32 sums in another order (tests/test_ops.py:138)
+# K4's (B, nb): one item and the bench batch at one, two and four blocks a
+# side (n = 512 is the main path's), and nb = 9 past the old cap of 8
+K4_SHAPES = tuple((B, nb) for B in (1, 512) for nb in (1, 2, 4)) + ((3, 9),)
 ADMM_ITERS = 24  # the production admm_iters
 # Fused ADMM kernel vs twin, 24 iterations: per scenario, max |diff| /
 # (max |twin| + 1) over (x, zc, y); the tolerances bound the largest and the
@@ -189,23 +199,27 @@ def check_spd_inverse(name, M):
     return err
 
 
-def profile_spd_inverse(M):
-    """One torch.profiler pass over a K3 call: {stage: (launches, device ms)}."""
-    from torch.profiler import ProfilerActivity, profile
+def profile(fn):
+    """One torch.profiler pass over one call of `fn`: [(event key, launches,
+    device ms)]."""
+    from torch.profiler import ProfilerActivity, profile as torch_profile
 
-    K3.spd_inverse(M)
+    fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        K3.spd_inverse(M)
+    with torch_profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
         torch.cuda.synchronize()
-    stages = {}
-    for ev in prof.key_averages():
-        for kernel, stage in K3_STAGES:
-            if f"{kernel}(" in ev.key:
-                us = getattr(ev, "self_device_time_total", None) or getattr(ev, "self_cuda_time_total", 0.0)
-                stages[stage] = (ev.count, us / 1e3)
-    require(len(stages) == len(K3_STAGES), f"K3 profile found only {sorted(stages)}")
-    return stages
+    return [(ev.key, ev.count,
+             (getattr(ev, "self_device_time_total", None) or getattr(ev, "self_cuda_time_total", 0.0)) / 1e3)
+            for ev in prof.key_averages()]
+
+
+def profile_stages(fn, stages):
+    """{stage: (launches, device ms)} of one call of `fn` for each (kernel
+    name, stage) of `stages`."""
+    got = {stage: (count, ms) for key, count, ms in profile(fn) for kernel, stage in stages if f"{kernel}(" in key}
+    require(len(got) == len(stages), f"profile found only {sorted(got)}")
+    return got
 
 
 def bound(nbytes, flops):
@@ -350,28 +364,32 @@ def main():
         for B in (1, 8):
             errs["spd_inverse"] = max(errs["spd_inverse"], check_spd_inverse(f"ragged n={n}", scaled_spd(B, n, gen)))
 
-    P = torch.randn(512, 512, 512, device=dev, generator=gen)
-    Msym = P @ P.transpose(1, 2) / 512
-    packed = K4.pack_symmetric(Msym)
-    v = torch.randn(512, 512, device=dev, generator=gen)
-    out = K4.symv_packed(packed, v)
-    torch.cuda.synchronize()
-    ref = K4.symv_packed_ref(packed, v)
-    torch.cuda.synchronize()
-    k4_err = float((out - ref).abs().max())
-    ok = torch.allclose(out, ref, rtol=SYMV_RTOL, atol=SYMV_ATOL)
-    # the main path's operand: the packed inverse of real KKT matrices
+    # K4 on random SPD matrices over K4_SHAPES, then on the main path's
+    # operand: the packed inverse of real KKT matrices
+    cases = []
+    for B, nb in K4_SHAPES:
+        n = nb * K4.BLK
+        P = torch.randn(B, n, n, device=dev, generator=gen)
+        cases.append((f"random SPD B={B} nb={nb}", K4.pack_symmetric(P @ P.transpose(1, 2) / n),
+                      torch.randn(B, n, device=dev, generator=gen)))
+        del P
     Minv = K3.spd_inverse(M_real)
     pk_real = K4.pack_symmetric(torch.nn.functional.pad(Minv, (0, 8, 0, 8)))
     v_real = torch.nn.functional.pad(torch.randn(4, 504, device=dev, generator=gen), (0, 8))
-    out_real = K4.symv_packed(pk_real, v_real)
-    torch.cuda.synchronize()
-    ref_real = K4.symv_packed_ref(pk_real, v_real)
-    ok_real = torch.allclose(out_real, ref_real, rtol=SYMV_RTOL, atol=SYMV_ATOL)
-    errs["symv_packed"] = max(k4_err, float((out_real - ref_real).abs().max()))
-    print(f"phase 2 K4 symv_packed [512, 10, 128, 128] random SPD and [4, 10, 128, 128] KKT inverse: "
-          f"max|out-ref| {errs['symv_packed']:.3e}, allclose(rtol {SYMV_RTOL}, atol {SYMV_ATOL}) {ok} / {ok_real}")
-    require(ok and ok_real, "K4 disagrees with its twin")
+    cases.append(("KKT inverse B=4 nb=4", pk_real, v_real))
+    for name, packed, v in cases:
+        out = K4.symv_packed(packed, v)
+        again = K4.symv_packed(packed, v)
+        torch.cuda.synchronize()
+        ref = K4.symv_packed_ref(packed, v)
+        torch.cuda.synchronize()
+        err = float((out - ref).abs().max())
+        ok, same = bool(torch.allclose(out, ref, rtol=SYMV_RTOL, atol=SYMV_ATOL)), bool(torch.equal(out, again))
+        errs["symv_packed"] = max(errs["symv_packed"], err)
+        print(f"phase 2 K4 symv_packed {name} {list(packed.shape)}: max|out-ref| {err:.3e}, allclose(rtol {SYMV_RTOL}, atol {SYMV_ATOL}) {ok}, two launches bitwise equal {same}")
+        require(ok, f"K4 disagrees with its twin on {name}")
+        require(same, f"K4 gives two results on the same inputs ({name})")
+    del cases
 
     # real walking QPs at B = 512: pushes in linspace(-1, 1), start times over 8 ticks of the gait
     B512 = 512
@@ -447,6 +465,15 @@ def main():
         dc = max(abs(float(x.cost) - float(y.cost)) / (abs(float(y.cost)) + 1.0) for x, y in zip(a, b))
         print(f"phase 6 B=1 tick chain {name}: max |dcost| / (|cost| + 1) {dc:.3e}")
         require(dc <= 0.005, f"B=1 tick chain: {name} disagree")
+    # P2: does K4 carry the dense chain's distance from the other two paths?
+    # The same chain with the batched-matmul x-update (xupdate_impl="dense", no K4).
+    cfg_mm = ergocub_mpc_config(kkt_impl="dense", xupdate_impl="dense")
+    mm_costs, _, _ = bench_chain(CentroidalMPCSolver(cfg_mm), cfg_mm)
+    for name, b in (("dense (K4)", dense_costs), ("riccati", ric_costs), ("fused", fused_costs)):
+        dc = (mm_costs - b).abs()
+        print(f"phase 6 P2 bench chain dense (matmul x-update) vs {name}: max|dcost| {float(dc.max()):.3e} "
+              f"(at item {int(dc.amax(0).argmax())})")
+        require(bool((dc <= 0.005 * (b.abs() + 1.0)).all()), f"bench chain: dense (matmul) vs {name} disagree")
 
     # --- 7. timings (not asserted) ------------------------------------------
     times, bounds = {}, {}
@@ -469,14 +496,26 @@ def main():
     for (name, B), (ms, plain, lib) in times.items():
         b_ms, b_by = bounds[(name, B)]
         lib_s = "none" if lib is None else f"{lib:.4f} ms"
+        rate = f", {b_ms * HBM_BYTES_PER_S / ms / 1e9:.1f} GB/s on the bound's bytes" if b_by == "bytes" else ""
         print(f"phase 7 time {name} B={B}: kernel {ms:.4f} ms, plain twin {plain:.4f} ms, library {lib_s}, "
-              f"bound {b_ms:.4f} ms ({b_by}), kernel at {100 * b_ms / ms:.1f} % of the bound {tag}")
-    for B in (1, B512):  # where K3's time goes, kernel by kernel
-        stages = profile_spd_inverse(M_real[:1].expand(B, 504, 504).contiguous())
-        total = sum(ms for _, ms in stages.values())
-        for stage, (count, ms) in stages.items():
-            print(f"phase 7 profile spd_inverse B={B} {stage}: {count} launches, {ms:.4f} ms device "
-                  f"({100 * ms / total:.1f} %) {tag}")
+              f"bound {b_ms:.4f} ms ({b_by}), kernel at {100 * b_ms / ms:.1f} % of the bound{rate} {tag}")
+    for B in (1, B512):  # where K3's and K4's time goes, kernel by kernel
+        Mb = M_real[:1].expand(B, 504, 504).contiguous()
+        pb = pk_real[:1].expand(B, 10, 128, 128).contiguous()
+        vb = v_real[:1].expand(B, 512).contiguous()
+        for name, fn, kernel_stages in (("spd_inverse", lambda: K3.spd_inverse(Mb), K3_STAGES),
+                                        ("symv_packed", lambda: K4.symv_packed(pb, vb), K4_STAGES)):
+            stages = profile_stages(fn, kernel_stages)
+            total = sum(ms for _, ms in stages.values())
+            for stage, (count, ms) in stages.items():
+                print(f"phase 7 profile {name} B={B} {stage}: {count} launches, {ms:.4f} ms device "
+                      f"({100 * ms / total:.1f} %) {tag}")
+        # the library call's device time beside K4's: at B = 1 both calls are set by the host
+        dense_b = K4.unpack_symmetric(pb)
+        mm = [(key, count, ms) for key, count, ms in profile(lambda: torch.matmul(dense_b, vb[..., None]))
+              if ms > 0 and not key.startswith("aten::")]
+        print(f"phase 7 profile torch.matmul on the unpacked matrix B={B}: {sum(c for _, c, _ in mm)} launches "
+              f"({', '.join(key[:60] for key, _, _ in mm)}), {sum(ms for _, _, ms in mm):.4f} ms device {tag}")
     for name, solver, cfg in (("dense", dense, cfg_dense), ("fused", fused, cfg_fused), ("riccati", ric, cfg_ric)):
         _, t1 = tick_chain(solver, cfg, ticks=20)
         lat = np.array(t1[1:])  # warm-started ticks

@@ -17,6 +17,7 @@ a non-zero code.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -106,8 +107,10 @@ def library() -> ctypes.CDLL:
     return _lib
 
 
+@functools.cache
 def kernel(name: str, n_ptrs: int, n_ints: int, n_floats: int = 0):
-    """C entry `name(ptr * n_ptrs, int * n_ints, float * n_floats, stream) -> int`."""
+    """C entry `name(ptr * n_ptrs, int * n_ints, float * n_floats, stream) -> int`
+    (looked up once per process)."""
     fn = getattr(library(), name)
     fn.argtypes = (
         [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints + [ctypes.c_float] * n_floats + [ctypes.c_void_p]

@@ -3,19 +3,23 @@
 Counterpart of `cmw_tpu/ops/symv.py` (`symv_packed`), the dense path's ADMM
 x-update when `xupdate_impl="symv"`. `tri_index` and `pack_symmetric` are
 plain PyTorch, as they are plain jnp in JAX. On a CUDA tensor `symv_packed`
-launches the hand-written kernel in `csrc/symv.cu`; on a CPU tensor it uses
-the plain twin `symv_packed_ref`, which unpacks the blocks and applies them
-with `einsum`.
+launches the hand-written kernel in `csrc/symv.cu` (each stored block read
+once and applied as itself and as its mirror, partials added by a second
+launch in a fixed order; see the note at the top of that file); on a CPU
+tensor it uses the plain twin `symv_packed_ref`, which unpacks the blocks and
+applies them with `einsum`.
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
 from cmw_tpu_torch.ops import _build
 
 BLK = 128
-MAX_NB = 8  # n <= 1024, the kernel's shared-memory copy of v
+MAX_CTAS = 2**31 - 1  # the partials launch is a 1-D grid of B * T blocks, one per stored block
 launches = 0  # kernel launches in this process (the plain twin never counts)
 
 
@@ -24,12 +28,19 @@ def tri_index(nb: int):
     return [(i, j) for i in range(nb) for j in range(i + 1)]
 
 
+@functools.lru_cache(maxsize=64)
 def n_blocks(n_packed: int) -> int:
     """nb from the packed block count nb (nb + 1) / 2."""
     nb = int(round((-1 + (1 + 8 * n_packed) ** 0.5) / 2))
     if nb * (nb + 1) // 2 != n_packed:
         raise ValueError(f"{n_packed} is not a triangular block count")
     return nb
+
+
+def scratch_floats(B: int, nb: int) -> int:
+    """The kernel's partials: B (T + T_off) 128 floats, a row partial per
+    stored block and a column partial per off-diagonal one."""
+    return B * nb * nb * BLK
 
 
 def pack_symmetric(M: torch.Tensor) -> torch.Tensor:
@@ -71,19 +82,22 @@ def symv_packed(packed: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
         raise TypeError(f"symv_packed: the kernel takes float32, got {packed.dtype}, {v.dtype}")
     if packed.dim() != 4 or packed.shape[2:] != (BLK, BLK):
         raise ValueError(f"symv_packed: expected [B, T, {BLK}, {BLK}], got {tuple(packed.shape)}")
-    B = packed.shape[0]
-    nb = n_blocks(packed.shape[1])
-    if nb > MAX_NB or v.shape != (B, nb * BLK):
+    B, T = packed.shape[:2]
+    nb = n_blocks(T)
+    if v.shape != (B, nb * BLK):
         raise ValueError(f"symv_packed: v {tuple(v.shape)} does not match packed {tuple(packed.shape)}")
-    if not (packed.is_contiguous() and v.is_contiguous()):
-        raise ValueError("symv_packed: inputs must be contiguous")
+    if B * T > MAX_CTAS:
+        raise ValueError(f"symv_packed: B = {B}, nb = {nb} needs more than {MAX_CTAS} thread blocks")
+    if not (packed.is_contiguous() and v.is_contiguous()) or (packed.data_ptr() | v.data_ptr()) % 16:
+        raise ValueError("symv_packed: inputs must be contiguous and 16-byte aligned")
     out = torch.empty_like(v)
     if B == 0:
         return out
-    fn = _build.kernel("cmw_symv_packed", 3, 2)
+    scratch = v.new_empty(scratch_floats(B, nb))
+    fn = _build.kernel("cmw_symv_packed", 4, 2)
     with torch.cuda.device(v.device):
         stream = torch.cuda.current_stream(v.device).cuda_stream
-        code = fn(packed.data_ptr(), v.data_ptr(), out.data_ptr(), B, nb, stream)
+        code = fn(packed.data_ptr(), v.data_ptr(), scratch.data_ptr(), out.data_ptr(), B, nb, stream)
     _build.check("symv_packed", code)
     global launches
     launches += 1

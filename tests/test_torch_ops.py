@@ -194,14 +194,22 @@ def test_spd_inverse_kernel_ragged_sizes(n, B):
 
 
 @pytest.mark.cuda
-def test_symv_kernel_matches_twin():
+@pytest.mark.parametrize("B, nb", [(B, nb) for B in (1, 512) for nb in (1, 2, 4)] + [(3, 9)])
+def test_symv_kernel_matches_twin(B, nb):
+    """One item and the bench batch, up to nb = 9 (n = 1152); two launches on
+    the same inputs are bitwise equal."""
     dev = _cuda()
     gen = torch.Generator(device=dev).manual_seed(7)
-    P = torch.randn(64, 512, 512, device=dev, generator=gen)
-    packed = K4.pack_symmetric(P @ P.transpose(1, 2) / 512)
-    v = torch.randn(64, 512, device=dev, generator=gen)
+    n = nb * K4.BLK
+    P = torch.randn(B, n, n, device=dev, generator=gen)
+    packed = K4.pack_symmetric(P @ P.transpose(1, 2) / n)
+    v = torch.randn(B, n, device=dev, generator=gen)
     before = K4.launches
     out = K4.symv_packed(packed, v)
+    again = K4.symv_packed(packed, v)
     torch.cuda.synchronize()
-    assert K4.launches == before + 1
+    assert K4.launches == before + 2
     torch.testing.assert_close(out, K4.symv_packed_ref(packed, v), rtol=SYMV_RTOL, atol=SYMV_ATOL)
+    assert torch.equal(out, again)
+    with pytest.raises(ValueError):
+        K4.symv_packed(packed, v[:, 1:].contiguous())
