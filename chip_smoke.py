@@ -17,10 +17,19 @@ calls, and checks it:
      B in {1, 8}; the residual on 8 items of the B = 512 walking-KKT
      inverse), the packed symv (rtol 2e-5 / atol 1e-4, at (B, nb) in
      K4_SHAPES and on the packed walking-KKT inverse; two launches on the same
-     inputs bitwise equal) and the fused ADMM loop on real walking QPs (minv from the
-     SPD-inverse kernel, A from constraint_dense, q from the cold-start
-     linearisation) at B = 4 and B = 512, iters = 24, for each operand
-     precision, within ADMM_TOL;
+     inputs bitwise equal) and the fused ADMM loop (compaction + cluster
+     loop) on real walking QPs (minv from the SPD-inverse kernel, A from
+     constraint_dense, q from the cold-start linearisation) at B = 4 and
+     B = 512, on a dense random A at B = 4 (the kernel's dense branch; at
+     n = 40, m = 56, and at n = 504, m = 1,304 in f32, its bf16 modes printed
+     beside the twin's own f32-vs-f64 gap), at ragged sizes (n = 37, m = 50,
+     B = 4, two items with a row over the row cap) and at the sizes of the
+     longer horizons K5_HORIZONS, which take the kernel's other launches (16
+     blocks a cluster; one block per scenario with and without the lists):
+     a sparse random A at B = 4 (the bf16 modes over K5_SHORT_ITERS), and
+     walking QPs at B = 4, printed beside the twin's own f32-vs-f64 gap, not
+     held; iters = 24, for each operand precision, within ADMM_TOL, two
+     launches on the same inputs bitwise equal;
   3. the dense-KKT main path with the batched ADMM loop (K3, K4): a cold
      solve and 10 warm-started receding-horizon ticks at B = 1, the
      lateral-push footstep check, then the bench shape (B = 512 pushes,
@@ -38,11 +47,13 @@ calls, and checks it:
   7. timings (printed, not asserted): each kernel at B = 1 and B = 512 beside
      its bound (and, where bytes set it, the rate reached on those bytes),
      its plain twin and, where one exists, the one PyTorch call
-     that computes the same function; one torch.profiler pass over an SPD
-     inverse and over a packed symv at B = 1 and at B = 512, with the device
-     time and count of each of its kernels, and the device time of
-     torch.matmul on the unpacked matrix beside K4's; each path's B = 1 warm
-     tick and B = 512 x KB = 4 rate.
+     that computes the same function, and K5 at the longer horizons; one
+     torch.profiler pass over an SPD inverse, a packed symv and a fused ADMM
+     call at B = 1 and at B = 512, with the device time and count of each of
+     its kernels, and the device time of torch.matmul on the unpacked matrix
+     beside K4's; K5's launch at each horizon and how many of its clusters
+     the card runs at once; each
+     path's B = 1 warm tick and B = 512 x KB = 4 rate.
 
 It imports nothing of JAX. Without a CUDA device it fails. The last two
 lines are the kernels' JSON record and {"ok": true, "device": {...}}.
@@ -73,11 +84,22 @@ K3_SIZES = (1, 24, 33, 100, 504)  # one tile, full + 1-wide, ragged 4-wide last 
 K3_STAGES = (("diagonal_kernel", "diagonal factor"), ("panel_kernel", "panel"), ("trailing_kernel", "trailing update"),
              ("triinv_kernel", "triangular inverse"), ("output_kernel", "output S X^T X S"))
 K4_STAGES = (("partials_kernel", "row and column partials"), ("reduce_kernel", "fixed-order reduce"))  # csrc/symv.cu
+K5_STAGES = (("compact_kernel", "compaction of A"), ("loop_kernel", "cluster loop"))  # csrc/admm_fused.cu
 SYMV_RTOL, SYMV_ATOL = 2e-5, 1e-4  # f32 sums in another order (tests/test_ops.py:138)
 # K4's (B, nb): one item and the bench batch at one, two and four blocks a
 # side (n = 512 is the main path's), and nb = 9 past the old cap of 8
 K4_SHAPES = tuple((B, nb) for B in (1, 512) for nb in (1, 2, 4)) + ((3, 9),)
 ADMM_ITERS = 24  # the production admm_iters
+# horizons (T at dt = 0.06) past the production T = 20 whose sizes take K5's
+# other launches: 16 blocks a cluster (T = 22), one block per scenario with the
+# lists (T = 33) and without them, every scenario on the dense branch (T = 60)
+K5_HORIZONS = (22, 33, 60)
+# At those sizes one flipped bf16 rounding grows over 24 iterations past
+# ADMM_TOL's median even between the twin with f32 and with f64 sums (sparse
+# random A at n = 816: bf16x2 median 1.5e-2; walking QPs at T = 60 even in
+# f32: 3.5e-4; CPU), so their bf16 modes are held over 4 iterations (that gap
+# 2e-7), and the walking QPs there are printed beside their own gap
+K5_SHORT_ITERS = 4
 # Fused ADMM kernel vs twin, 24 iterations: per scenario, max |diff| /
 # (max |twin| + 1) over (x, zc, y); the tolerances bound the largest and the
 # median over the scenarios. The noise, from the twin in f32 against the twin
@@ -214,19 +236,38 @@ def profile(fn):
             for ev in prof.key_averages()]
 
 
+def device_time(fn):
+    """One torch.profiler pass over one call of `fn`: (device ms of every
+    kernel, copy and fill it ran, their count, (name, ms) of the largest)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile as torch_profile
+
+    fn()
+    torch.cuda.synchronize()
+    with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    rows = [(ev.key, ev.count, ev.self_device_time_total / 1e3) for ev in prof.key_averages()
+            if ev.device_type == DeviceType.CUDA and not getattr(ev, "is_user_annotation", False)]
+    key, _, top = max(rows, key=lambda r: r[2])
+    return sum(ms for _, _, ms in rows), sum(count for _, count, _ in rows), (key, top)
+
+
 def profile_stages(fn, stages):
     """{stage: (launches, device ms)} of one call of `fn` for each (kernel
     name, stage) of `stages`."""
-    got = {stage: (count, ms) for key, count, ms in profile(fn) for kernel, stage in stages if f"{kernel}(" in key}
+    got = {stage: (count, ms) for key, count, ms in profile(fn) for kernel, stage in stages
+           if f"{kernel}(" in key or f"{kernel}<" in key}
     require(len(got) == len(stages), f"profile found only {sorted(got)}")
     return got
 
 
 def bound(nbytes, flops):
-    """(least ms on the card, what sets it): bytes moved once over the memory
-    rate against float32 operations over the float32 peak."""
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOP_PER_S
-    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+    """(least ms on the card, what sets it, ms of the bytes, ms of the
+    operations): bytes moved once over the memory rate against float32
+    operations over the float32 peak."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOP_PER_S * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations"), t_bytes, t_ops
 
 
 def bound_spd_inverse(M):
@@ -241,11 +282,92 @@ def bound_symv(packed, v):
 
 
 def bound_admm_fused(args, iters):
-    # inputs read once, (x, zc, y) written once; per iteration A^T w, minv rhs
-    # and A x (2 flops per matrix entry each) and the vector updates (12 m + 3 n)
+    # inputs read once, (x, zc, y) written once; per iteration minv rhs (2 n^2),
+    # A^T w and A x (2 nnz(A) each, counted on these A) and the vector updates
+    # (12 m + 3 n)
     B, m, n = args[1].shape  # A
     nbytes = (sum(t.numel() for t in args) + B * (n + 2 * m)) * 4
-    return bound(nbytes, B * iters * (4 * m * n + 2 * n * n + 12 * m + 3 * n))
+    nnz = int(torch.count_nonzero(args[1]))
+    return bound(nbytes, iters * (B * (2 * n * n + 12 * m + 3 * n) + 4 * nnz))
+
+
+def qp_around(A, gen):
+    """The fused ADMM kernel's inputs around constraint matrices A [B, m, n]
+    (tests/test_torch_admm_fused_schedule.py `_qp`, drawn on the card): minv
+    of G G^T + I + A^T rho A (inverted in float64), rho in [0.1, 10], bounds
+    around 0, q random, a cold start."""
+    B, m, n = A.shape
+    dev = A.device
+    rho = 0.1 + 9.9 * torch.rand(B, m, device=dev, generator=gen)
+    G = torch.randn(B, n, n, device=dev, generator=gen).double() * 0.05
+    At = A.transpose(1, 2).double()
+    M = G @ G.transpose(1, 2) + torch.eye(n, device=dev, dtype=torch.float64) + (At * rho[:, None, :]) @ At.transpose(1, 2)
+    l = -torch.randn(B, m, device=dev, generator=gen).abs()
+    u = torch.randn(B, m, device=dev, generator=gen).abs()
+    q = torch.randn(B, n, device=dev, generator=gen)
+    zeros_n, zeros_m = torch.zeros(B, n, device=dev), torch.zeros(B, m, device=dev)
+    return torch.linalg.inv(M).float().contiguous(), A.contiguous(), q, l, u, rho, zeros_n, zeros_m, zeros_m.clone()
+
+
+def sparse_constraints(gen, B=4, n=37, m=50):
+    """A sparse random A: identity rows, then rows of 3 entries (columns
+    3 k .. 3 k + 2 mod n); the odd items' last row has 4 entries, past the
+    kernel's row cap of 3, so they take the dense branch."""
+    dev = gen.device
+    A = torch.zeros(B, m, n, device=dev)
+    A[:, torch.arange(n), torch.arange(n)] = 1.0
+    k = torch.arange(m - n, device=dev)
+    cols = (3 * k[:, None] + torch.arange(3, device=dev)) % n
+    A[:, (n + k)[:, None], cols] = torch.randn(B, m - n, 3, device=dev, generator=gen)
+    A[1::2, m - 1, :4] = torch.randn(B // 2, 4, device=dev, generator=gen)
+    return A
+
+
+def scenario_gap(got, want):
+    """Per scenario, max |got - want| / (max |want| + 1) over (x, zc, y)."""
+    return torch.stack([(g - w).abs().amax(-1) / (w.abs().amax(-1) + 1.0) for g, w in zip(got, want)]).amax(0)
+
+
+def check_admm_fused(name, args, modes, iters=ADMM_ITERS):
+    """K5 against its twin in each of `modes`, launched twice; fails unless it
+    is within ADMM_TOL and the two launches are bitwise equal. Returns the
+    largest f32 |diff|."""
+    B, n, m = args[0].shape[0], args[0].shape[1], args[1].shape[1]
+    err = 0.0
+    for mode in modes:
+        tol_max, tol_median = ADMM_TOL[mode]
+        got = K5.admm_fused(*args, iters=iters, mxu_dtype=mode)
+        again = K5.admm_fused(*args, iters=iters, mxu_dtype=mode)
+        torch.cuda.synchronize()
+        want = K5.admm_fused_ref(*args, iters=iters, mxu_dtype=mode)
+        diff = [float((g - w).abs().max()) for g, w in zip(got, want)]
+        rel = scenario_gap(got, want)
+        worst, median = float(rel.max()), float(rel.median())
+        finite = all(bool(torch.isfinite(g).all()) for g in got)
+        same = all(torch.equal(g, a) for g, a in zip(got, again))
+        print(f"phase 2 K5 admm_fused {name} B={B} {K5.plan(n, m)} iters={iters} {mode}: max|diff| x "
+              f"{diff[0]:.3e} zc {diff[1]:.3e} y {diff[2]:.3e}; per scenario / (max|twin| + 1): largest {worst:.3e} "
+              f"(tol {tol_max:g}), median {median:.3e} (tol {tol_median:g}); two launches bitwise equal {same}")
+        require(finite and worst <= tol_max and median <= tol_median,
+                f"K5 {mode} on {name} at B={B} disagrees with its twin")
+        require(same, f"K5 gives two results on the same inputs ({name}, {mode})")
+        if mode == "f32":
+            err = max(err, max(diff))
+    return err
+
+
+def chaos_witness(name, args, modes=("bf16", "bf16x2")):
+    """`modes` on inputs where they are not held: the kernel's gap to the twin
+    beside the twin's own gap between f32 and f64 sums on the same inputs,
+    the input's measure of how far one rounding carries (printed)."""
+    for mode in modes:
+        got = K5.admm_fused(*args, iters=ADMM_ITERS, mxu_dtype=mode)
+        want = K5.admm_fused_ref(*args, iters=ADMM_ITERS, mxu_dtype=mode)
+        want64 = K5.admm_fused_ref(*(a.double() for a in args), iters=ADMM_ITERS, mxu_dtype=mode)
+        kernel, chaos = scenario_gap(got, want), scenario_gap(want, want64)
+        print(f"phase 2 K5 admm_fused {name} {mode}, not held: per scenario / (max|twin| + 1), kernel vs twin "
+              f"median {float(kernel.median()):.3e} largest {float(kernel.max()):.3e}; twin f32 vs twin f64 sums "
+              f"median {float(chaos.median()):.3e} largest {float(chaos.max()):.3e}")
 
 
 def tick_chain(solver, cfg, ticks, push=0.0):
@@ -404,22 +526,33 @@ def main():
     print(f"phase 2 K3 spd_inverse walking KKT [512, 504, 504], items {items.tolist()}: ||I-MX||_inf {r512:.3e}")
     require(r512 < RESID_TOL, f"K3 residual {r512} >= {RESID_TOL} on the B = 512 walking KKT matrices")
     k5_args = {4: (Minv, *qp4), B512: (Minv512, *qp512)}
-    for B, args in k5_args.items():
-        for mode, (tol_max, tol_median) in ADMM_TOL.items():
-            got = K5.admm_fused(*args, iters=ADMM_ITERS, mxu_dtype=mode)
-            torch.cuda.synchronize()
-            want = K5.admm_fused_ref(*args, iters=ADMM_ITERS, mxu_dtype=mode)
-            diff = [float((g - w).abs().max()) for g, w in zip(got, want)]
-            rel = torch.stack([(g - w).abs().amax(-1) / (w.abs().amax(-1) + 1.0) for g, w in zip(got, want)]).amax(0)
-            worst, median = float(rel.max()), float(rel.median())
-            finite = all(bool(torch.isfinite(g).all()) for g in got)
-            print(f"phase 2 K5 admm_fused B={B} iters={ADMM_ITERS} {mode}: max|diff| x {diff[0]:.3e} "
-                  f"zc {diff[1]:.3e} y {diff[2]:.3e}; per scenario / (max|twin| + 1): largest {worst:.3e} "
-                  f"(tol {tol_max:g}), median {median:.3e} (tol {tol_median:g})")
-            require(finite and worst <= tol_max and median <= tol_median,
-                    f"K5 {mode} at B={B} disagrees with its twin")
-            if mode == "f32":
-                errs["admm_fused"] = max(errs["admm_fused"], max(diff))
+    # a dense random A takes the kernel's dense branch. At n = 504, m = 1,304
+    # its bf16 modes are chaotic by the input's own measure (the twin with f32
+    # sums against the twin with f64 sums, printed by chaos_witness), so those
+    # modes are held to ADMM_TOL at n = 40, m = 56 and the production size in f32
+    dense_big = qp_around(torch.randn(4, 1304, 504, device=dev, generator=gen) / 504**0.5, gen)
+    k5_long = {}  # walking QPs at B = 4 of the horizons that take the other launches
+    for T in K5_HORIZONS:
+        cfg_T = ergocub_mpc_config(kkt_impl="dense", horizon=round(T * cfg_dense.dt, 6))
+        M_T, qp_T = cold_linearisation(cfg_T, make_params(cfg_T, lateral([-1.0, 0.0, 0.6, 1.2])))
+        k5_long[T] = (torch.linalg.inv(M_T.double()).float().contiguous(), *qp_T)
+        del M_T
+    k5_cases = [("walking QPs", k5_args[4], tuple(ADMM_TOL)), ("walking QPs", k5_args[B512], tuple(ADMM_TOL)),
+                ("dense random A n=504 m=1304", dense_big, ("f32",)),
+                ("dense random A n=40 m=56", qp_around(torch.randn(4, 56, 40, device=dev, generator=gen) / 40**0.5,
+                                                       gen), tuple(ADMM_TOL)),
+                ("ragged n=37 m=50", qp_around(sparse_constraints(gen), gen), tuple(ADMM_TOL))]
+    for name, args, modes in k5_cases:
+        errs["admm_fused"] = max(errs["admm_fused"], check_admm_fused(name, args, modes))
+    chaos_witness("dense random A n=504 m=1304 B=4", dense_big)
+    for T, args in k5_long.items():  # the other launches, on a sparse random A at their sizes
+        n, m = args[0].shape[1], args[1].shape[1]
+        sparse = qp_around(sparse_constraints(gen, n=n, m=m), gen)
+        name = f"sparse random A n={n} m={m}"
+        errs["admm_fused"] = max(errs["admm_fused"], check_admm_fused(name, sparse, ("f32",)))
+        check_admm_fused(name, sparse, ("bf16", "bf16x2"), iters=K5_SHORT_ITERS)
+        chaos_witness(f"walking QPs T={T} B=4", args, modes=tuple(ADMM_TOL))
+    del k5_cases, dense_big
 
     # --- 3. dense main path: K3 + K4 ----------------------------------------
     dense = CentroidalMPCSolver(cfg_dense)
@@ -488,23 +621,46 @@ def main():
         times[("symv_packed", B)] = (cuda_ms(lambda: K4.symv_packed(pb, vb), 50),
                                      cuda_ms(lambda: K4.symv_packed_ref(pb, vb), 50),
                                      cuda_ms(lambda: torch.matmul(dense_b, vb[..., None]), 50))
-        times[("admm_fused", B)] = (cuda_ms(lambda: K5.admm_fused(*ab, iters=ADMM_ITERS), 5),
-                                    cuda_ms(lambda: K5.admm_fused_ref(*ab, iters=ADMM_ITERS), 5), None)
+        reps = 20 if B == 1 else 5
+        times[("admm_fused", B)] = (cuda_ms(lambda: K5.admm_fused(*ab, iters=ADMM_ITERS), reps),
+                                    cuda_ms(lambda: K5.admm_fused_ref(*ab, iters=ADMM_ITERS), reps), None)
         bounds[("spd_inverse", B)] = bound_spd_inverse(Mb)
         bounds[("symv_packed", B)] = bound_symv(pb, vb)
         bounds[("admm_fused", B)] = bound_admm_fused(ab, ADMM_ITERS)
     for (name, B), (ms, plain, lib) in times.items():
-        b_ms, b_by = bounds[(name, B)]
+        b_ms, b_by, t_bytes, t_ops = bounds[(name, B)]
         lib_s = "none" if lib is None else f"{lib:.4f} ms"
         rate = f", {b_ms * HBM_BYTES_PER_S / ms / 1e9:.1f} GB/s on the bound's bytes" if b_by == "bytes" else ""
         print(f"phase 7 time {name} B={B}: kernel {ms:.4f} ms, plain twin {plain:.4f} ms, library {lib_s}, "
-              f"bound {b_ms:.4f} ms ({b_by}), kernel at {100 * b_ms / ms:.1f} % of the bound{rate} {tag}")
-    for B in (1, B512):  # where K3's and K4's time goes, kernel by kernel
+              f"bound {b_ms:.4f} ms ({b_by}; bytes {t_bytes:.4f} ms, operations {t_ops:.4f} ms), kernel at "
+              f"{100 * b_ms / ms:.1f} % of the bound{rate} {tag}")
+    # K5's launch at each horizon, and its time at the longer ones (B = 512
+    # only where its inputs take a few GB: the last reads a dense A of 22 MB
+    # per scenario)
+    for T, args in [(cfg_dense.T, k5_args[B512])] + list(k5_long.items()):
+        n, m = args[0].shape[1], args[1].shape[1]
+        print(f"phase 7 admm_fused T={T} n={n} m={m}: {K5.plan(n, m)}, {K5.active_clusters(n, m)} clusters at once "
+              f"(cudaOccupancyMaxActiveClusters) {tag}")
+        if T == cfg_dense.T:
+            continue  # timed above
+        for B in (1,) if T == K5_HORIZONS[-1] else (1, B512):
+            ab = tuple(a[:1].expand(B, *a.shape[1:]).contiguous() for a in args)
+            reps = 20 if B == 1 else 5
+            ms = cuda_ms(lambda: K5.admm_fused(*ab, iters=ADMM_ITERS), reps)
+            plain = cuda_ms(lambda: K5.admm_fused_ref(*ab, iters=ADMM_ITERS), reps)
+            b_ms, b_by, t_bytes, t_ops = bound_admm_fused(ab, ADMM_ITERS)
+            print(f"phase 7 time admm_fused T={T} B={B}: kernel {ms:.4f} ms, plain twin {plain:.4f} ms, bound "
+                  f"{b_ms:.4f} ms ({b_by}; bytes {t_bytes:.4f} ms, operations {t_ops:.4f} ms), kernel at "
+                  f"{100 * b_ms / ms:.1f} % of the bound {tag}")
+            del ab
+    for B in (1, B512):  # where K3's, K4's and K5's time goes, kernel by kernel
         Mb = M_real[:1].expand(B, 504, 504).contiguous()
         pb = pk_real[:1].expand(B, 10, 128, 128).contiguous()
         vb = v_real[:1].expand(B, 512).contiguous()
+        ab = tuple(a[:B].contiguous() for a in k5_args[B512])
         for name, fn, kernel_stages in (("spd_inverse", lambda: K3.spd_inverse(Mb), K3_STAGES),
-                                        ("symv_packed", lambda: K4.symv_packed(pb, vb), K4_STAGES)):
+                                        ("symv_packed", lambda: K4.symv_packed(pb, vb), K4_STAGES),
+                                        ("admm_fused", lambda: K5.admm_fused(*ab, iters=ADMM_ITERS), K5_STAGES)):
             stages = profile_stages(fn, kernel_stages)
             total = sum(ms for _, ms in stages.values())
             for stage, (count, ms) in stages.items():
@@ -523,6 +679,14 @@ def main():
         print(f"phase 7 time {name} B=1 warm tick: p50 {np.percentile(lat, 50):.2f} ms, "
               f"p90 {np.percentile(lat, 90):.2f} ms, max {lat.max():.2f} ms ({len(lat)} ticks) {tag}")
         print(f"phase 7 time {name} B=512 x KB=4: {s:.3f} s, {512 * 4 / s:.1f} solves/s {tag}")
+        if name == "fused":  # its device time per warm solve against those wall times
+            for B, wall in ((1, float(np.percentile(lat, 50))), (B512, s * 1e3 / 4)):
+                params = make_params(cfg, lateral(torch.linspace(-1.0, 1.0, B) if B > 1 else [0.0]))
+                warm = solver.warm_from(params, solver.solve(params, solver.cold_start(B)))
+                dev_ms, count, (key, top) = device_time(lambda: solver.solve(params, warm))
+                print(f"phase 7 profile fused solve B={B}: device {dev_ms:.3f} ms in {count} kernels, copies and "
+                      f"fills; wall {wall:.2f} ms (unprofiled, above), idle share {1 - dev_ms / wall:.3f}; largest "
+                      f"{key[:70]} {top:.3f} ms {tag}")
 
     sources = {"spd_inverse": ("cmw_tpu_torch/csrc/spd_inverse.cu", "cmw_tpu/ops/spd_inverse.py:132"),
                "symv_packed": ("cmw_tpu_torch/csrc/symv.cu", "cmw_tpu/ops/symv.py:77"),
@@ -530,7 +694,7 @@ def main():
     record = {"kernels": []}
     for name, (source, replaces) in sources.items():
         ms, plain, lib = times[(name, B512)]
-        b_ms, b_by = bounds[(name, B512)]
+        b_ms, b_by, _, _ = bounds[(name, B512)]
         record["kernels"].append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": l_dense[name] + l_fused[name], "max_abs_err": errs[name], "ms": ms, "plain_ms": plain,

@@ -14,9 +14,17 @@ loop of the dense KKT path with `admm_impl="fused"`. For each scenario it runs
     zc  = clip(zh + y rinv, l, u),  rinv = 1 / rho computed once
     y   = y + rho (zh - zc)
 
-On a CUDA tensor `admm_fused` launches the hand-written kernel in
-`csrc/admm_fused.cu` (see the note at the top of that file); on a CPU tensor
-it uses the plain twin `admm_fused_ref`, the same loop with batched matmuls.
+On a CUDA tensor `admm_fused` launches the hand-written kernels in
+`csrc/admm_fused.cu` (see the note at the top of that file), two per call:
+a compaction of A to row lists of a few non-zeros, then the loop, one
+thread-block cluster per scenario that holds minv in its shared memory, a
+row slice of it in each block. The kernel chooses the launch from n and m
+alone (`plan`): 8 blocks a cluster at the production sizes, 16 at somewhat
+longer horizons, then one block per scenario that streams minv from device
+memory, and past that one block without the lists. A scenario whose A is
+beyond the lists' caps runs the A products on the dense A in the same kernel
+(the walking A never is). On a CPU tensor it uses the plain twin
+`admm_fused_ref`, the same loop with batched matmuls.
 
 `mxu_dtype` is the TPU kernel's operand precision: "f32" (the solver's),
 "bf16" (matrices and vector operand rounded to bf16, f32 sums) or "bf16x2"
@@ -26,13 +34,16 @@ two products summed in f32).
 
 from __future__ import annotations
 
+import ctypes
+import functools
+from typing import NamedTuple
+
 import torch
 
 from cmw_tpu_torch.ops import _build
 
 MXU_DTYPES = ("f32", "bf16", "bf16x2")  # the kernel's mode flag is the index
-SMEM_BYTES = 232_448  # shared memory one H100 block may use; the kernel keeps every vector there
-launches = 0  # kernel launches in this process (the plain twin never counts)
+launches = 0  # calls that launched the kernels (two launches each, one without the lists; the twin never counts)
 
 
 def _mode(mxu_dtype: str) -> int:
@@ -43,6 +54,23 @@ def _mode(mxu_dtype: str) -> int:
 
 def _bf16(t: torch.Tensor) -> torch.Tensor:
     return t.to(torch.bfloat16).to(t.dtype)
+
+
+class Plan(NamedTuple):
+    """The loop launch the kernel takes for n and m (`plan` in the source)."""
+
+    cluster: int  # blocks a cluster; 1: one block per scenario, minv streamed from device memory
+    lists: bool  # the blocks hold A's lists; False: every scenario takes the dense branch
+    smem_bytes: int  # shared memory of one block
+    scratch_bytes: int  # the compaction's output, per scenario
+
+
+@functools.cache
+def plan(n: int, m: int) -> Plan | None:
+    """The kernel's launch for n and m, or None where no launch holds them."""
+    out = (ctypes.c_int * 4)()
+    _build.check("admm_fused plan", _build.kernel("cmw_admm_fused_plan", 1, 2)(ctypes.addressof(out), n, m, None))
+    return Plan(out[0], bool(out[1]), out[2], out[3]) if out[0] else None
 
 
 def admm_fused_ref(minv, A, q, l, u, rho, x0, zc0, y0, *, iters: int, sigma: float = 1e-6, alpha: float = 1.6,
@@ -101,18 +129,30 @@ def admm_fused(minv, A, q, l, u, rho, x0, zc0, y0, *, iters: int, sigma: float =
         raise ValueError(f"admm_fused: shapes {[tuple(t.shape) for t in ins]}, expected {list(want)}")
     if not all(t.is_contiguous() for t in ins):
         raise ValueError("admm_fused: inputs must be contiguous")
-    if (3 * n + 7 * m) * 4 > SMEM_BYTES:
-        raise ValueError(f"admm_fused: n={n}, m={m} needs more than {SMEM_BYTES} bytes of shared memory")
     if iters < 0:
         raise ValueError(f"admm_fused: iters={iters} < 0")
+    launch = plan(n, m)
+    if launch is None:
+        raise ValueError(f"admm_fused: no launch holds n={n}, m={m}: empty, or its vectors pass one block's "
+                         "shared memory")
     outs = (torch.empty_like(x0), torch.empty_like(zc0), torch.empty_like(y0))
     if B == 0:
         return outs
-    fn = _build.kernel("cmw_admm_fused", 12, 5, 2)
+    scratch = torch.empty(B * launch.scratch_bytes, dtype=torch.uint8, device=minv.device)
+    fn = _build.kernel("cmw_admm_fused", 13, 5, 2)
     with torch.cuda.device(minv.device):
         stream = torch.cuda.current_stream(minv.device).cuda_stream
-        code = fn(*(t.data_ptr() for t in ins + outs), B, n, m, iters, mode, sigma, alpha, stream)
+        code = fn(*(t.data_ptr() for t in ins + outs + (scratch,)), B, n, m, iters, mode, sigma, alpha, stream)
     _build.check("admm_fused", code)
     global launches
     launches += 1
     return outs
+
+
+def active_clusters(n: int, m: int) -> int:
+    """How many clusters of the loop launch for n and m the current card runs
+    at once (`cudaOccupancyMaxActiveClusters`, f32)."""
+    code = _build.kernel("cmw_admm_fused_active_clusters", 0, 2)(n, m, None)
+    if code < 0:
+        raise RuntimeError(f"admm_fused: occupancy query failed with CUDA error {-code}")
+    return code

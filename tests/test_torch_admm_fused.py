@@ -26,6 +26,7 @@ from cmw_tpu_torch import convert
 from cmw_tpu_torch.cmpc import formulation as TF
 from cmw_tpu_torch.cmpc import qp as tqp
 from cmw_tpu_torch.ops import admm_fused as K5
+from test_torch_admm_fused_schedule import _dense  # a QP on a dense random A: the kernel's dense branch
 
 torch.set_num_threads(2)
 
@@ -127,15 +128,20 @@ def test_unknown_mxu_dtype_raises(problem):
 @pytest.mark.cuda
 @pytest.mark.parametrize("mxu_dtype", K5.MXU_DTYPES)
 def test_kernel_matches_twin(problem, mxu_dtype):
+    """The walking QPs (row lists) and a dense random A (the dense branch):
+    one launch each, within the tolerance of the twin, and two launches on the
+    same inputs bitwise equal."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernel has no CPU mode")
-    _, _, args = problem
-    targs = [torch.tensor(a, device="cuda") for a in args]
-    before = K5.launches
-    got = K5.admm_fused(*targs, iters=ITERS, mxu_dtype=mxu_dtype)
-    torch.cuda.synchronize()
-    assert K5.launches == before + 1
-    want = K5.admm_fused_ref(*targs, iters=ITERS, mxu_dtype=mxu_dtype)
-    _assert_state([g.cpu().numpy() for g in got], [w.cpu().numpy() for w in want], mxu_dtype)
+    for args in (problem[2], _dense()):
+        targs = [torch.tensor(a, device="cuda") for a in args]
+        before = K5.launches
+        got = K5.admm_fused(*targs, iters=ITERS, mxu_dtype=mxu_dtype)
+        again = K5.admm_fused(*targs, iters=ITERS, mxu_dtype=mxu_dtype)
+        torch.cuda.synchronize()
+        assert K5.launches == before + 2
+        assert all(torch.equal(g, a) for g, a in zip(got, again))
+        want = K5.admm_fused_ref(*targs, iters=ITERS, mxu_dtype=mxu_dtype)
+        _assert_state([g.cpu().numpy() for g in got], [w.cpu().numpy() for w in want], mxu_dtype)
     with pytest.raises(TypeError):
         K5.admm_fused(*(t.double() for t in targs), iters=ITERS)
