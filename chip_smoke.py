@@ -6,7 +6,7 @@
 Drives `CentroidalMPCSolver.solve` of the port at the production
 configuration (ergocub_mpc_config(): T = 20, 504 variables, 1,304 constraint
 rows, sqp 2 x admm 24) on the card, through the same entry points a user
-calls, and checks it:
+calls, alone and fed by the MANN trajectory generator, and checks it:
 
   1. the card's name and power limit; the kernels' build from csrc/*.cu (one
      nvcc per source, all started together);
@@ -53,7 +53,21 @@ calls, and checks it:
      its kernels, and the device time of torch.matmul on the unpacked matrix
      beside K4's; K5's launch at each horizon and how many of its clusters
      the card runs at once; each
-     path's B = 1 warm tick and B = 512 x KB = 4 rate.
+     path's B = 1 warm tick and B = 512 x KB = 4 rate;
+  8. joystick -> MANN -> MPC, the MPC stage of the walking controller
+     (cmw_tpu/runtime/loop.py:508-1053 on the kinematic plant, composed here
+     by `mpc_tick` from the port's modules) on the checked-in ergoCub URDF,
+     with SYNTHETIC MANN weights at the published mann4 shapes (numpy seed;
+     the shipped ONNX weights are not in the repository): the 40-step
+     generator at B = 1 and B = 256 on the card against the port on the CPU
+     in f64 (contact flags identical, every channel within GEN_TOL); one MPC
+     tick at B = 256 on the fused (K3, K5) and the Riccati path, held against
+     each other and against the port's CPU solve within the sentinel, then
+     11 receding fused ticks at B = 1, each re-rooting the generator
+     mann_advance knots in; K3 and K5 must launch in the phase (K5 sqp_iters
+     times per fused solve); printed: the generator's wall per call at
+     B = 1 and B = 256, one profiled generator call (device time, kernels,
+     idle share) and the B = 1 tick's p50.
 
 It imports nothing of JAX. Without a CUDA device it fails. The last two
 lines are the kernels' JSON record and {"ok": true, "device": {...}}.
@@ -62,15 +76,26 @@ lines are the kernels' JSON record and {"ok": true, "device": {...}}.
 from __future__ import annotations
 
 import json
+import math
 import subprocess
 import time
+from typing import NamedTuple
 
 import numpy as np
 import torch
 
+from cmw_tpu_torch import convert
 from cmw_tpu_torch.cmpc import CentroidalMPCSolver, MPCParams, ergocub_mpc_config
 from cmw_tpu_torch.cmpc import formulation as F
+from cmw_tpu_torch.cmpc.solver import WarmStart
 from cmw_tpu_torch.core import contacts
+from cmw_tpu_torch.core import kinematics as kin
+from cmw_tpu_torch.core import lie
+from cmw_tpu_torch.core.centroidal import pack_state
+from cmw_tpu_torch.core.splines import linear_spline
+from cmw_tpu_torch.mann import generator as G
+from cmw_tpu_torch.mann import input_builder as IB
+from cmw_tpu_torch.mann import network as N
 from cmw_tpu_torch.ops import _build
 from cmw_tpu_torch.ops import admm_fused as K5
 from cmw_tpu_torch.ops import spd_inverse as K3
@@ -429,6 +454,172 @@ def push_saturates_box(solver, cfg):
     return dy
 
 
+# --- MANN -> MPC: the MPC stage of the walking controller ---------------------
+# (cmw_tpu/runtime/loop.py:508-1053 on the kinematic plant, while moving)
+
+MANN_SPEED = 0.05  # m/s: the synthetic weights' forward base motion
+COM_HEIGHT_DROP = 0.05  # WalkingConfig.com_height_drop (runtime/config.py:46)
+PLAN_PHASES = 16  # WalkingConfig.plan_phases
+# card f32 vs the port's CPU f64, per generator channel after 40 steps; the
+# CPU's own f32-vs-f64 gap on the same rollouts is ~1e-7 (com) and ~4e-7
+# (angular momentum), so these allow two orders of magnitude for the card's
+# other libm and summation orders
+GEN_TOL = {"com": 1e-5, "ang_mom": 1e-4, "joints": 1e-5, "base_xy_yaw": 1e-5, "base_height": 1e-5,
+           "foot_pose_xy_yaw": 1e-5}
+
+
+def synthetic_mann_numpy(seed: int = 0) -> dict:
+    """MANN weights at the published mann4 shapes (124 -> 32 -> 32 -> 4 gate,
+    4 experts of 124 -> 128 -> 128 -> 91), as numpy from a seed: small random
+    weights, and an output bias that holds the walk-ready joints and a slow
+    forward base motion, so that the rollout stays physical. Not the shipped
+    ONNX weights, which are not in the repository."""
+    rng = np.random.default_rng(seed)
+
+    def lin(*shape):
+        return rng.standard_normal(shape) / np.sqrt(shape[-1])
+
+    def bias(*shape):
+        return 0.1 * rng.standard_normal(shape)
+
+    E, lead = 4, 0.8 / G.N_FUTURE  # experts; lead time of each future point
+    b_out = np.zeros(91)
+    b_out[0:12:2] = MANN_SPEED * lead * np.arange(1, G.N_FUTURE + 1)  # future positions, x
+    b_out[12:24:2] = 1.0  # future facing [1, 0]
+    b_out[24:36:2] = MANN_SPEED  # future velocities, x
+    b_out[36:62] = kin.reference_initial_pose()  # joints; velocities and momentum terms 0
+    return dict(
+        w_in=np.eye(124) + 0.05 * lin(124, 124), b_in=0.01 * rng.standard_normal(124),
+        gate_w=(lin(32, 124), lin(32, 32), lin(4, 32)), gate_b=(bias(32), bias(32), bias(4)),
+        expert_w=(lin(E, 128, 124), lin(E, 128, 128), lin(E, 91, 128)),
+        expert_b=(bias(E, 128), bias(E, 128), bias(E, 91)),
+        w_out=1e-4 * rng.standard_normal((91, 91)), b_out=b_out,
+    )
+
+
+def lifted(W: dict) -> dict:
+    """The synthetic weights with the left leg folded (hip pitch +0.4, knee
+    -0.6, ankle pitch -0.2 rad in the output bias): the left sole rises
+    ~3 cm with its corners level, so its contact trigger switches off and
+    the foot swings."""
+    b = W["b_out"].copy()
+    b[36 + 0] += 0.4
+    b[36 + 3] -= 0.6
+    b[36 + 4] -= 0.2
+    return dict(W, b_out=b)
+
+
+class Chain(NamedTuple):
+    """What the MPC stage carries from one tick to the next (LoopState's
+    t, gen_state, plan, warm and x9), each [B, ...]."""
+
+    t: torch.Tensor  # [B]
+    gen: G.GeneratorState
+    plan: contacts.ContactPlan
+    warm: WarmStart
+    x0: torch.Tensor  # [B, 9]
+
+
+def walk_ready_chain(solver, model, gen_cfg, B, *, device="cuda"):
+    """WalkingController.initial_state (runtime/loop.py:335-395) from the
+    walk-ready pose (kin.walk_ready_pose, passed explicitly, so no polish):
+    the base placed so that the lower sole touches the ground, a double-stance
+    plan on the FK soles projected to z = 0 with yaw-only rotations, the
+    generator seeded with the same pose, zero velocities. Returns the chain
+    and the CoM height reference [B] (com0 z - com_height_drop, loop.py:367)."""
+    dtype = torch.float32
+    q_np, rot_np = kin.walk_ready_pose()
+    q = torch.as_tensor(q_np, dtype=dtype, device=device).expand(B, -1).contiguous()
+    base_rot = torch.as_tensor(rot_np, dtype=dtype, device=device).expand(B, 3, 3)
+    zeros3 = torch.zeros(B, 3, dtype=dtype, device=device)
+    li, ri = model.frame_index("l_sole"), model.frame_index("r_sole")
+    _, fp = kin.frame_poses(model, *kin.fk(model, q, base_rot, zeros3))
+    base_pos = torch.cat([zeros3[:, :2], -torch.minimum(fp[:, li, 2:3], fp[:, ri, 2:3])], dim=-1)
+    lR, lp = kin.fk(model, q, base_rot, base_pos)
+    fR, fp = kin.frame_poses(model, lR, lp)
+    com0 = kin.com(model, lR, lp)
+    plan = contacts.empty_plan(2, PLAN_PHASES, device=device, dtype=dtype)
+    plan = contacts.ContactPlan(*(a.expand((B,) + a.shape).clone() for a in plan))
+    for foot, idx in enumerate((li, ri)):
+        plan.act[:, foot, 0] = 0.0
+        plan.valid[:, foot, 0] = 1.0
+        plan.pos[:, foot, 0, :2] = fp[:, idx, :2]
+        plan.rot[:, foot, 0] = lie.rotz(lie.yaw_of(fR[:, idx]))
+    chain = Chain(
+        t=torch.zeros(B, dtype=dtype, device=device),
+        gen=G.initial_state(gen_cfg, model, q),
+        plan=plan,
+        warm=solver.cold_start(B, device=device, dtype=dtype),
+        x0=pack_state(com0, zeros3, zeros3),
+    )
+    return chain, com0[:, 2] - COM_HEIGHT_DROP
+
+
+def mpc_tick(solver, gen_cfg, model, weights, chain: Chain, joy, com_z_ref, mann_advance: int):
+    """One MPC tick of WalkingController._mpc_stage on the kinematic plant,
+    on a generator-call tick (runtime/loop.py:508-1053, steps 1-7), from the
+    joystick joy [B, 4] (motion, facing). The next chain re-roots the
+    generator mann_advance knots in and starts from the solve's predicted
+    state one interval ahead. Returns (next chain, solution, MPC parameters)."""
+    cfg = solver.cfg
+    t, B = chain.t, chain.t.shape[0]
+    dtype, device = t.dtype, t.device
+    # 1. joystick -> desired base trajectory (loop.py:724)
+    desired = IB.build_desired_trajectory(joy[:, 0:2], joy[:, 2:4])
+    # 2. MANN autoregression, re-rooted mann_advance knots in (loop.py:785-790)
+    _, outs, states = G.generate_with_states(gen_cfg, model, weights, chain.gen, desired)
+    gen_next = G.GeneratorState(*(a[:, mann_advance - 1] for a in states))
+    # 3. the contact timeline, prepended with the current state, as a plan
+    # (loop.py:794-812); knots slow_down_factor * dt apart (loop.py:761-764)
+    gen_times = (torch.arange(gen_cfg.n_steps, dtype=dtype, device=device) + 1.0) * (
+        gen_cfg.dt * gen_cfg.slow_down_factor)
+    flags = torch.cat([chain.gen.contact[:, None], outs.contact], dim=1)
+    pose = torch.cat([chain.gen.foot_pose_xy_yaw[:, None], outs.foot_pose_xy_yaw], dim=1)
+    tl_times = t[:, None] + torch.cat([torch.zeros(1, dtype=dtype, device=device), gen_times])
+    foot_pos = torch.cat([pose[..., 0:2], torch.zeros_like(pose[..., :1])], dim=-1)
+    mann_plan = contacts.plan_from_timeline(flags, tl_times, foot_pos, lie.rotz(pose[..., 2]), P=PLAN_PHASES)
+    # 4. frequency adapters at the MPC knots, offset 0 on a call tick; CoM z
+    # overridden; angular momentum scaled by ang_mom_ref_scale (1) / (mass *
+    # slow_down_factor) (loop.py:761-765, 831-852; ref_ramp 0 on this plant)
+    knot_times = torch.arange(cfg.N, dtype=dtype, device=device) * cfg.dt
+    com_ref, _ = linear_spline(gen_times, outs.com, knot_times)
+    com_ref = torch.cat([com_ref[..., 0:2], com_z_ref[:, None, None].expand(B, cfg.N, 1)], dim=-1)
+    L_ref, _ = linear_spline(gen_times, outs.ang_mom, knot_times)
+    L_ref = L_ref * (1.0 / (model.total_mass * gen_cfg.slow_down_factor))
+    # 5. merge with the previous (adjusted) plan, snap to the grid (loop.py:856-857)
+    plan = contacts.snap_to_grid(contacts.merge_plans(mann_plan, chain.plan, t), cfg.dt)
+    # 6. solve (loop.py:996-1009); no measured wrench, so the deadbanded one is 0
+    stage = contacts.mpc_stage_params(plan, t, cfg.T, cfg.dt, cfg.n_slots)
+    zeros3 = torch.zeros(B, 3, dtype=dtype, device=device)
+    params = MPCParams(x0=chain.x0, com_ref=com_ref, ang_mom_ref=L_ref, stage=stage, ext_force=zeros3,
+                       ext_torque=zeros3)
+    sol = solver.solve(params, chain.warm)
+    # 7. write the adjusted footsteps back (loop.py:1012)
+    plan = contacts.write_back_adjusted(plan, t, cfg.n_slots, sol.positions, stage.slot_valid)
+    nxt = Chain(t=t + cfg.dt, gen=gen_next, plan=plan, warm=solver.warm_from(params, sol), x0=sol.states[:, 1])
+    return nxt, sol, params
+
+
+def joysticks(B, device="cuda"):
+    """[B, 4] joystick commands (motion, facing): item 0 walks forward, the
+    rest are random sticks in all four quadrants, each motion stick pushed at
+    least 0.2 (past the stand-mode threshold of 0.05, so the controller is
+    moving)."""
+    joy = np.random.default_rng(3).uniform(-1.0, 1.0, size=(B, 4))
+    norm = np.linalg.norm(joy[:, :2], axis=-1, keepdims=True)
+    joy[:, :2] *= np.maximum(norm, 0.2) / np.maximum(norm, 1e-9)
+    joy[0] = [0.8, 0.0, 1.0, 0.0]
+    return torch.as_tensor(joy, dtype=torch.float32, device=device)
+
+
+def mann_advance(gen_cfg, mpc_dt: float) -> int:
+    """WalkingConfig.mann_advance (runtime/config.py:376-410): generator steps
+    per call, lcm(slow_down_factor * gen dt, MPC dt) / (slow_down_factor *
+    gen dt); 3 for the 20 ms generator under the 60 ms MPC."""
+    a = round(gen_cfg.slow_down_factor * gen_cfg.dt * 1e6)
+    return int(round(math.lcm(a, round(mpc_dt * 1e6)) / a))
+
+
 KERNELS = {"spd_inverse": K3, "symv_packed": K4, "admm_fused": K5}
 
 
@@ -454,6 +645,129 @@ def main_path(name, solver, cfg):
           f"max prim {max(float(s.prim_res) for s in ticks):.2e}), push dy {dy:.5f}, "
           f"B=512 x KB=4 (max prim {float(prims.max()):.2e}); launches {launches}")
     return ticks, costs, launches
+
+
+def phase_mann_mpc(tag):
+    """Phase 8: joystick -> MANN -> MPC on the card. Returns the launches of
+    its main path (the B = 256 ticks and the B = 1 tick chain)."""
+    dev = "cuda"
+    model = kin.ergocub_urdf()
+    gen_cfg = G.GeneratorConfig()
+    W = synthetic_mann_numpy()
+    print("phase 8 MANN weights: SYNTHETIC, from numpy seed 0, at the published mann4 shapes (124 -> 32 -> 32 -> 4 "
+          "gate, 4 experts 124 -> 128 -> 128 -> 91); the shipped ONNX weights are not in the repository")
+    net = N.MANN(convert.mann_weights_from_numpy(W, device="cpu")).to(dev)
+    weights = net.weights
+    x = torch.randn(8, 124, device=dev, generator=torch.Generator(device=dev).manual_seed(8))
+    require(torch.equal(net(x), N.mann_forward(weights, x)), "the MANN module and mann_forward disagree")
+    q_ready = torch.as_tensor(kin.walk_ready_pose()[0], dtype=torch.float32)
+
+    # --- the generator: card f32 against the port's CPU f64 ----------------
+    # the walking weights keep both feet down; the lifted ones switch the left
+    # foot's trigger off, so the flags are held where they change
+    wall = {}
+    for wname, B, Wc in (("walk", 1, W), ("walk", 256, W), ("lift", 256, lifted(W))):
+        w32 = weights if wname == "walk" else convert.mann_weights_from_numpy(Wc, device=dev)
+        w64 = convert.mann_weights_from_numpy(Wc, device="cpu", dtype=torch.float64)
+        joy = joysticks(B)
+        state = G.initial_state(gen_cfg, model, q_ready.to(dev).expand(B, -1).contiguous())
+        desired = IB.build_desired_trajectory(joy[:, 0:2], joy[:, 2:4])
+        _, out, _ = G.generate_with_states(gen_cfg, model, w32, state, desired)
+        joy64 = joy.cpu().double()
+        state64 = G.initial_state(gen_cfg, model, q_ready.double().expand(B, -1).contiguous())
+        desired64 = IB.build_desired_trajectory(joy64[:, 0:2], joy64[:, 2:4])
+        _, out64, _ = G.generate_with_states(gen_cfg, model, w64, state64, desired64)
+        same_flags = torch.equal(out.contact.cpu().double(), out64.contact)
+        gaps = {f: float((getattr(out, f).cpu().double() - getattr(out64, f)).abs().max()) for f in GEN_TOL}
+        swings = int((out64.contact < 0.5).sum())
+        case = f"generator {wname} B={B}"
+        print(f"phase 8 {case} x {gen_cfg.n_steps} steps, card f32 vs CPU f64: contact flags identical "
+              f"{same_flags} ({swings} foot-steps in swing); max|diff| "
+              + ", ".join(f"{f} {g:.2e} (tol {GEN_TOL[f]:g})" for f, g in gaps.items())
+              + f"; final CoM item 0 {out64.com[0, -1].tolist()}")
+        require(same_flags, f"{case}: contact flags differ between the card and the CPU")
+        require(all(g <= GEN_TOL[f] for f, g in gaps.items()), f"{case}: card vs CPU f64 {gaps}")
+        require(all(bool(torch.isfinite(a).all()) for a in out), f"{case}: non-finite output")
+        require(wname == "walk" or swings > 0, f"{case}: the lifted foot never swings")
+        if wname == "lift":
+            continue
+
+        def call():
+            return G.generate_with_states(gen_cfg, model, weights, state, desired)
+
+        call()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(3):
+            call()
+        torch.cuda.synchronize()
+        wall[B] = (time.perf_counter() - t) / 3 * 1e3
+        print(f"phase 8 time generator B={B}: {wall[B]:.1f} ms per generate_with_states call "
+              f"({gen_cfg.n_steps} steps, wall, mean of 3) {tag}")
+        if B == 1:
+            dev_ms, count, (key, top) = device_time(call)
+            print(f"phase 8 profile generator B=1: device {dev_ms:.3f} ms in {count} kernels, copies and fills; wall "
+                  f"{wall[1]:.1f} ms (unprofiled, above), idle share {1 - dev_ms / wall[1]:.3f}; largest "
+                  f"{key[:60]} {top:.3f} ms {tag}")
+
+    # --- the MPC tick: fused (K3 + K5) and Riccati, B = 256, then a B = 1 chain
+    cfg_fused = ergocub_mpc_config(kkt_impl="dense", admm_impl="fused")
+    fused, ric = CentroidalMPCSolver(cfg_fused), CentroidalMPCSolver(ergocub_mpc_config())
+    adv = mann_advance(gen_cfg, cfg_fused.dt)
+    zero_launches()
+    joy = joysticks(256)
+    ticks = {}
+    for name, solver in (("fused", fused), ("riccati", ric)):
+        chain, z_ref = walk_ready_chain(solver, model, gen_cfg, 256)
+        nxt, sol, params = mpc_tick(solver, gen_cfg, model, weights, chain, joy, z_ref, adv)
+        require(bool(torch.isfinite(sol.z).all()), f"MANN -> MPC {name} B=256: non-finite z")
+        ticks[name] = (sol, params, nxt)
+    n_fused = 1
+    p_f, p_r = ticks["fused"][1], ticks["riccati"][1]
+    print(f"phase 8 MANN -> MPC B=256: the two paths' references differ by max|com_ref| "
+          f"{float((p_f.com_ref - p_r.com_ref).abs().max()):.2e}, active intervals "
+          f"{int((p_f.stage.active != p_r.stage.active).sum())}; left foot swinging in "
+          f"{int((p_f.stage.active[:, 0] < 0.5).any(-1).sum())} items, right in "
+          f"{int((p_f.stage.active[:, 1] < 0.5).any(-1).sum())}")
+    items = torch.arange(4)
+    p_cpu = F.MPCParams(*(type(a)(*(b[items].cpu() for b in a)) if isinstance(a, tuple) else a[items].cpu()
+                          for a in p_f))
+    cpu = CentroidalMPCSolver(ergocub_mpc_config())
+    s_cpu = cpu.solve(p_cpu, cpu.cold_start(4, device="cpu"))
+    s_f, s_r = ticks["fused"][0], ticks["riccati"][0]
+    for name, a, b in (("fused gpu vs riccati gpu", s_f, s_r), ("fused gpu vs riccati cpu", s_f, s_cpu),
+                       ("riccati gpu vs riccati cpu", s_r, s_cpu)):
+        ca, cb = a.cost.cpu()[: b.cost.shape[0]], b.cost.cpu()
+        dc = (ca - cb).abs()
+        prim = float(a.prim_res.max())
+        good = bool((dc <= 0.005 * (cb.abs() + 1.0)).all()) and prim < 1e-2
+        print(f"phase 8 sentinel MANN -> MPC {name} (B={ca.shape[0]}): max|dcost| {float(dc.max()):.3e} "
+              f"(max |cost| {float(cb.abs().max()):.3f}), prim {prim:.2e}: {'ok' if good else 'FAIL'}")
+        require(good, f"MANN -> MPC sentinel failed: {name}")
+
+    chain, z_ref = walk_ready_chain(fused, model, gen_cfg, 1)
+    joy1 = joysticks(1)
+    t_tick = []
+    for k in range(11):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        chain, sol, params = mpc_tick(fused, gen_cfg, model, weights, chain, joy1, z_ref, adv)
+        torch.cuda.synchronize()
+        t_tick.append((time.perf_counter() - t) * 1e3)
+        n_fused += 1
+        require(float(sol.prim_res.max()) < 1e-2, f"MANN -> MPC tick {k}: prim_res {float(sol.prim_res.max())}")
+        require(bool(torch.isfinite(sol.z).all()), f"MANN -> MPC tick {k}: non-finite z")
+    launches = read_launches()
+    com = sol.states[0, 0, :3].tolist()
+    print(f"phase 8 MANN -> MPC main path: 2 B=256 ticks (fused, riccati) and 11 B=1 fused ticks re-rooted "
+          f"{adv} knots in each (t = {float(chain.t):.2f} s, CoM {[round(c, 4) for c in com]}, last cost "
+          f"{float(sol.cost):.4f}); launches {launches}")
+    require(launches["spd_inverse"] > 0 and launches["admm_fused"] == cfg_fused.sqp_iters * n_fused,
+            f"MANN -> MPC launches {launches}, expected admm_fused {cfg_fused.sqp_iters} x {n_fused} fused solves")
+    lat = np.array(t_tick[1:])
+    print(f"phase 8 time MANN -> MPC fused B=1 tick (generator + solve, warm): p50 {np.percentile(lat, 50):.1f} ms, "
+          f"p90 {np.percentile(lat, 90):.1f} ms, max {lat.max():.1f} ms ({len(lat)} ticks) {tag}")
+    return launches
 
 
 def main():
@@ -688,6 +1002,9 @@ def main():
                       f"fills; wall {wall:.2f} ms (unprofiled, above), idle share {1 - dev_ms / wall:.3f}; largest "
                       f"{key[:70]} {top:.3f} ms {tag}")
 
+    # --- 8. joystick -> MANN -> MPC ----------------------------------------
+    l_mann = phase_mann_mpc(tag)
+
     sources = {"spd_inverse": ("cmw_tpu_torch/csrc/spd_inverse.cu", "cmw_tpu/ops/spd_inverse.py:132"),
                "symv_packed": ("cmw_tpu_torch/csrc/symv.cu", "cmw_tpu/ops/symv.py:77"),
                "admm_fused": ("cmw_tpu_torch/csrc/admm_fused.cu", "cmw_tpu/ops/admm_fused.py:143")}
@@ -697,7 +1014,7 @@ def main():
         b_ms, b_by, _, _ = bounds[(name, B512)]
         record["kernels"].append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": l_dense[name] + l_fused[name], "max_abs_err": errs[name], "ms": ms, "plain_ms": plain,
+            "launches": l_dense[name] + l_fused[name] + l_mann[name], "max_abs_err": errs[name], "ms": ms, "plain_ms": plain,
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib,
         })
     print(json.dumps(record))

@@ -1,16 +1,19 @@
-"""cmw_tpu_torch — PyTorch/CUDA port of the cmw_tpu centroidal-MPC solver.
+"""cmw_tpu_torch — PyTorch/CUDA port of the cmw_tpu centroidal-MPC stack.
 
-A second implementation of `cmw_tpu.cmpc.CentroidalMPCSolver.solve` for one
-NVIDIA H100, written batch-first (`[B, ...]` tensors) in plain PyTorch, with
+A second implementation of `cmw_tpu`'s MPC level (the MANN trajectory
+generator and `cmw_tpu.cmpc.CentroidalMPCSolver.solve`) for one NVIDIA
+H100, written batch-first (`[B, ...]` tensors) in plain PyTorch, with
 the three Pallas TPU kernels of the dense-KKT path rewritten by hand in CUDA
 C++ for `sm_90a` (`csrc/`). Its entry points put their tensors on the card
 (`device="cuda"`) unless the caller passes `device="cpu"`:
 
-  core/        centroidal dynamics, fixed-shape contact plans
+  core/        centroidal dynamics, contact plans, Lie groups, splines,
+               integrators, floating-base kinematics (+ models/ergocub.urdf)
+  mann/        MANN network, ONNX reader, joystick input builder, generator
   cmpc/        formulation, ADMM QP, parametric Riccati x-update, SQP solver
   ops/         hand-written Hopper kernels (SPD inverse, packed symv, fused
                ADMM), each with a plain PyTorch twin and a launch counter
-  convert.py   numpy <-> tensor converters for the solver's containers
+  convert.py   numpy <-> tensor converters for the port's containers
 
 Module paths mirror `cmw_tpu`, so each counterpart sits at the same path.
 This package never imports jax or cmw_tpu.

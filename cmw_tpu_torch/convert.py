@@ -1,18 +1,22 @@
-"""Numpy <-> tensor converters for the solver's containers.
+"""Numpy <-> tensor converters for the port's containers.
 
-The solver has no learned weights; its state is the per-solve parameters,
-the contact plan and the warm start. These converters carry that state
-between the JAX package and the port: each `*_from_numpy` takes the JAX
-container (its NamedTuple, or a dict of the same field names) holding numpy
-arrays with a leading batch axis, and returns the port's container of
-tensors on the given device (the card unless the caller passes another) and
-dtype. `solution_to_numpy` goes back, to a
-dict of numpy arrays. `config_from_dict` inverts `dataclasses.asdict` of the
-JAX `MPCConfig` (lists, as from JSON, become tuples again).
+These converters carry state between the JAX package and the port: each
+`*_from_numpy` takes the JAX container (its NamedTuple, or a dict of the
+same field names) holding numpy arrays with a leading batch axis, and
+returns the port's container of tensors on the given device (the card
+unless the caller passes another) and dtype. The solver's containers are
+the per-solve parameters, the contact plan and the warm start; the MANN
+generator's are its weights (no batch axis) and its state.
+`solution_to_numpy` and `generator_state_to_numpy` go back, to a dict of
+numpy arrays. `config_from_dict` inverts `dataclasses.asdict` of the JAX
+`MPCConfig` (lists, as from JSON, become tuples again).
+`robot_model_from_numpy` copies the numpy fields of a JAX `RobotModel`, so
+that both packages run the identical model.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from collections.abc import Mapping
 
 import numpy as np
@@ -21,6 +25,9 @@ import torch
 from cmw_tpu_torch.cmpc.formulation import MPCConfig, MPCParams
 from cmw_tpu_torch.cmpc.solver import WarmStart
 from cmw_tpu_torch.core.contacts import ContactPlan, MPCStageParams
+from cmw_tpu_torch.core.kinematics import RobotModel
+from cmw_tpu_torch.mann.generator import GeneratorState
+from cmw_tpu_torch.mann.network import MANNWeights
 
 
 def _get(obj, name):
@@ -53,6 +60,36 @@ def params_from_numpy(params, *, device="cuda", dtype=torch.float32) -> MPCParam
 
 def warm_from_numpy(warm, *, device="cuda", dtype=torch.float32) -> WarmStart:
     return _convert(WarmStart, warm, device, dtype)
+
+
+def _per_layer(arrays, *, device, dtype):
+    return tuple(torch.as_tensor(np.array(a), dtype=dtype, device=device) for a in arrays)
+
+
+def mann_weights_from_numpy(weights, *, device="cuda", dtype=torch.float32) -> MANNWeights:
+    """A JAX `MANNWeights` (or a dict of its fields; the gate and expert
+    fields are tuples of arrays, one a layer) -> the port's MANNWeights."""
+    layers = dict.fromkeys(("gate_w", "gate_b", "expert_w", "expert_b"), _per_layer)
+    return _convert(MANNWeights, weights, device, dtype, nested=layers)
+
+
+def generator_state_from_numpy(state, *, device="cuda", dtype=torch.float32) -> GeneratorState:
+    return _convert(GeneratorState, state, device, dtype)
+
+
+def generator_state_to_numpy(state: GeneratorState) -> dict:
+    return solution_to_numpy(state)
+
+
+def robot_model_from_numpy(model) -> RobotModel:
+    """A JAX `RobotModel` (a frozen dataclass of numpy arrays) -> the port's,
+    with copies of the same arrays."""
+    fields = {}
+    for f in dataclasses.fields(RobotModel):
+        if f.init:
+            value = getattr(model, f.name)
+            fields[f.name] = np.array(value) if isinstance(value, np.ndarray) else value
+    return RobotModel(**fields)
 
 
 def solution_to_numpy(sol) -> dict:

@@ -1,5 +1,6 @@
-"""The port runs without JAX: importing `cmw_tpu_torch` and running a solve
-loads neither `jax` nor the JAX package `cmw_tpu`."""
+"""The port runs without JAX: importing `cmw_tpu_torch` (and `chip_smoke.py`),
+running a solve and a MANN rollout loads neither `jax` nor the JAX package
+`cmw_tpu`."""
 
 import os
 import subprocess
@@ -29,7 +30,18 @@ for kkt in ("dense", "riccati"):
     solver = CentroidalMPCSolver(ergocub_mpc_config(horizon=0.6, kkt_impl=kkt))
     sol = solver.solve(params, solver.cold_start(1, device="cpu"))
     assert bool(torch.isfinite(sol.z).all()) and float(sol.prim_res[0]) < 1e-2
-import cmw_tpu_torch.convert
+import chip_smoke
+from cmw_tpu_torch import convert
+from cmw_tpu_torch.core import integrators, kinematics, lie, splines
+from cmw_tpu_torch.mann import generator, input_builder, network, onnx_import
+
+model = kinematics.ergocub_urdf()
+weights = convert.mann_weights_from_numpy(chip_smoke.synthetic_mann_numpy(), device="cpu")
+state = generator.initial_state(generator.GeneratorConfig(), model,
+                                torch.tensor(kinematics.walk_ready_pose()[0], dtype=torch.float32)[None])
+desired = input_builder.build_desired_trajectory(torch.tensor([[0.8, 0.0]]), torch.tensor([[1.0, 0.0]]))
+_, out = generator.generate(generator.GeneratorConfig(), model, weights, state, desired)
+assert out.com.shape == (1, 40, 3) and bool(torch.isfinite(out.com).all())
 loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "cmw_tpu"))
 print("LOADED", loaded)
 assert not loaded, loaded
