@@ -67,7 +67,19 @@ calls, alone and fed by the MANN trajectory generator, and checks it:
      mann_advance knots in; K3 and K5 must launch in the phase (K5 sqp_iters
      times per fused solve); printed: the generator's wall per call at
      B = 1 and B = 256, one profiled generator call (device time, kernels,
-     idle share) and the B = 1 tick's p50.
+     idle share) and the B = 1 tick's p50;
+  9. the closed loop, joystick -> MANN -> MPC -> swing foot / ZMP / CoM-ZMP /
+     IK -> integration (`cmw_tpu_torch.runtime.loop.WalkingController`, the
+     kinematic plant), tick after tick: 150 ticks at B = 1 on the fused MPC
+     (K3, K5) against the port on the CPU in f64 (contact flags and fixed feet
+     identical on every tick, every telemetry channel within CLOSED_TOL over
+     the first MPC period), 60 ticks at B = 1 on the dense MPC (K3, K4), 60
+     ticks at B = 256 on the lifted weights with random joysticks (4 items
+     against the CPU f64, a foot in swing), each episode within mpc_prim <
+     1e-2 and |com_meas - com_mpc|_xy < 0.09; K5 must launch sqp_iters times
+     per MPC tick; printed: the WBC tick's wall at B = 1 and 256 (with the
+     number of operations in it that waited for the card), the MPC stage's
+     wall, and one profiled MPC period at B = 256 split by the loop's spans.
 
 It imports nothing of JAX. Without a CUDA device it fails. The last two
 lines are the kernels' JSON record and {"ok": true, "device": {...}}.
@@ -79,6 +91,7 @@ import json
 import math
 import subprocess
 import time
+import warnings
 from typing import NamedTuple
 
 import numpy as np
@@ -100,6 +113,8 @@ from cmw_tpu_torch.ops import _build
 from cmw_tpu_torch.ops import admm_fused as K5
 from cmw_tpu_torch.ops import spd_inverse as K3
 from cmw_tpu_torch.ops import symv as K4
+from cmw_tpu_torch.runtime import loop as RL
+from cmw_tpu_torch.runtime.config import ergocub_gazebo_v1
 
 T0 = 1.02  # left foot swinging: its next footstep is adjustable
 RESID_TOL = 1e-4  # ||I - M X||_inf, the inverse's done-check
@@ -649,7 +664,8 @@ def main_path(name, solver, cfg):
 
 def phase_mann_mpc(tag):
     """Phase 8: joystick -> MANN -> MPC on the card. Returns the launches of
-    its main path (the B = 256 ticks and the B = 1 tick chain)."""
+    its main path (the B = 256 ticks and the B = 1 tick chain) and the
+    synthetic weights on the card."""
     dev = "cuda"
     model = kin.ergocub_urdf()
     gen_cfg = G.GeneratorConfig()
@@ -767,6 +783,251 @@ def phase_mann_mpc(tag):
     lat = np.array(t_tick[1:])
     print(f"phase 8 time MANN -> MPC fused B=1 tick (generator + solve, warm): p50 {np.percentile(lat, 50):.1f} ms, "
           f"p90 {np.percentile(lat, 90):.1f} ms, max {lat.max():.1f} ms ({len(lat)} ticks) {tag}")
+    return launches, weights
+
+
+# --- the closed loop: joystick -> MANN -> MPC -> IK, tick after tick -----------
+# (cmw_tpu/runtime/loop.py WalkingController.step on the kinematic plant)
+
+CLOSED_TICKS = 150  # 0.3 s of gait: 5 MPC ticks, each a generator call
+CLOSED_PERIOD = 30  # ticks of one MPC period (mpc_every at the 60 ms MPC, 2 ms WBC)
+# card f32 against the port's CPU f64 over the first MPC period, per channel,
+# of max(1, max |CPU value|): the CPU's own f32-vs-f64 gap there is at most
+# 1.5e-5 (forces0, dq_cmd), 7.6e-5 (mpc_cost) and 2.6e-6 elsewhere (B = 1,
+# and 4 lifted items); these allow ~10-100x that for the card's kernels and
+# summation orders
+CLOSED_TOL = {"forces0": 1e-3, "dq_cmd": 1e-3, "mpc_cost": 1e-3}
+CLOSED_TOL_DEFAULT = 1e-4
+FLAG_CHANNELS = ("foot_contact", "fixed_foot_idx")  # identical on every tick
+COM_TRACK_TOL = 0.09  # max |com_meas - com_mpc|_xy, the closed-loop bound of tests/test_runtime.py:40
+PRIM_TOL = 1e-2
+SPANS = ("mann", "mpc.solve", "mpc.other", "wbc.estimation", "wbc.ik", "wbc.other")  # runtime/loop.py
+
+
+def tick_inputs(joy, S):
+    """TickInput [B, S, ...]: the joystick joy [B, 4] on every tick, no push."""
+    zeros = torch.zeros(joy.shape[0], S, 3, dtype=joy.dtype, device=joy.device)
+    return RL.TickInput(joy[:, None].expand(-1, S, 4), zeros, zeros.clone())
+
+
+def closed_invariants(name, tel):
+    """Finite channels, mpc_prim < PRIM_TOL, CoM tracking within COM_TRACK_TOL
+    over the episode. Returns (max prim, max |com_meas - com_mpc|_xy)."""
+    bad = [n for n, v in tel._asdict().items() if not bool(torch.isfinite(v).all())]
+    prim = float(tel.mpc_prim.max())
+    err = float((tel.com_meas - tel.com_mpc)[..., 0:2].abs().max())
+    require(not bad, f"{name}: non-finite channels {bad}")
+    require(prim < PRIM_TOL and err < COM_TRACK_TOL, f"{name}: mpc_prim {prim}, |com_meas - com_mpc|_xy {err}")
+    return prim, err
+
+
+def closed_vs_cpu(name, tel, tel64, items=None):
+    """The card's telemetry (items of it) against the CPU f64 run: FLAG_CHANNELS
+    identical on every tick the CPU ran, every channel over the first MPC
+    period within CLOSED_TOL. Returns the largest gap and its channel."""
+    got = {n: (v if items is None else v[items]).cpu().double() for n, v in tel._asdict().items()}
+    ticks = tel64.q.shape[1]
+    for n in FLAG_CHANNELS:
+        require(torch.equal(got[n][:, :ticks], getattr(tel64, n)), f"{name}: {n} differs between the card and the CPU")
+    worst = (0.0, "")
+    for n, want in tel64._asdict().items():
+        want = want[:, :CLOSED_PERIOD]
+        gap = float((got[n][:, :CLOSED_PERIOD] - want).abs().max()) / max(1.0, float(want.abs().max()))
+        require(gap <= CLOSED_TOL.get(n, CLOSED_TOL_DEFAULT), f"{name}: {n} card vs CPU f64 {gap}")
+        worst = max(worst, (gap, n))
+    return worst
+
+
+def count_syncs(fn):
+    """(fn's result, {"file:line": count} of the operations in it that waited
+    for the card), by torch.cuda's sync debug mode."""
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    where = {}
+    for w in caught:  # (the mode's own first call warns that it is a prototype: not a sync)
+        if "called a synchronizing CUDA operation" in str(w.message):
+            key = f"{w.filename.split('/')[-1]}:{w.lineno}"
+            where[key] = where.get(key, 0) + 1
+    return out, where
+
+
+def wbc_walls(ctl, s, inp, n, n_checked=3):
+    """n_checked WBC ticks from s under torch.cuda's sync debug mode, then n
+    more with the mode off, each timed alone (synchronised before and after).
+    Returns (state, ms of the n timed ticks, {"file:line": count} of the
+    operations inside the checked ticks that waited for the card)."""
+    syncs = {}
+    for _ in range(n_checked):
+        (s, _), where = count_syncs(lambda: ctl._wbc_stage(s, inp))
+        for key, count in where.items():
+            syncs[key] = syncs.get(key, 0) + count
+    times = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        s, _ = ctl._wbc_stage(s, inp)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t) * 1e3)
+    return s, np.array(times), syncs
+
+
+def mpc_period(ctl, s, inputs, tick0):
+    """One MPC period from s at tick0 (an MPC tick): 1 MPC + mpc_every WBC ticks."""
+    for k in range(ctl.cfg.mpc_every):
+        s, _ = ctl.step(s, RL.TickInput(*(a[:, k] for a in inputs)), tick0 + k)
+    return s
+
+
+def span_profile(ctl, s, inputs, tick0):
+    """One torch.profiler pass over an MPC period: {span: [device ms, kernels,
+    host ms]}, the kernels each span of runtime/loop.py launched (innermost
+    span) and the span's own host time under the profiler, and (device ms,
+    kernels) of the whole pass."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile as torch_profile
+
+    torch.cuda.synchronize()
+    with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        mpc_period(ctl, s, inputs, tick0)
+        torch.cuda.synchronize()
+    spans = {name: [0.0, 0, 0.0] for name in SPANS + ("outside the spans",)}
+    for ev in prof.events():
+        if ev.device_type == DeviceType.CPU and ev.name in SPANS:
+            spans[ev.name][2] += ev.cpu_time_total / 1e3
+        if ev.device_type != DeviceType.CPU or not ev.kernels:
+            continue
+        parent = ev
+        while parent is not None and parent.name not in SPANS:
+            parent = parent.cpu_parent
+        slot = spans[parent.name if parent is not None else "outside the spans"]
+        slot[0] += sum(k.duration for k in ev.kernels) / 1e3
+        slot[1] += len(ev.kernels)
+    return spans, (sum(v[0] for v in spans.values()), sum(v[1] for v in spans.values()))
+
+
+def phase_closed_loop(tag, weights, dev="cuda"):
+    """Phase 9: the walking controller, joystick -> MANN -> MPC -> swing foot
+    / ZMP / CoM-ZMP / IK -> integration, tick after tick on the card.
+    Returns the launches of its main path (the fused B = 1 and B = 256
+    episodes and the dense B = 1 episode)."""
+    t_phase = time.perf_counter()
+    model = kin.ergocub_urdf()
+    W = synthetic_mann_numpy()
+    cfg = ergocub_gazebo_v1(mpc=ergocub_mpc_config(kkt_impl="dense", admm_impl="fused"))
+    cfg_dense = ergocub_gazebo_v1(mpc=ergocub_mpc_config(kkt_impl="dense"))
+    ctl = RL.WalkingController(cfg, model, weights, device=dev)
+    ctl64 = RL.WalkingController(cfg, model, convert.mann_weights_from_numpy(W, device="cpu", dtype=torch.float64),
+                                 device="cpu")
+    every = cfg.mpc_every
+    sqp = cfg.mpc.sqp_iters
+    launches = {name: 0 for name in KERNELS}
+
+    def add(got):
+        for name, n in got.items():
+            launches[name] += n
+
+    # --- B = 1, fused MPC (K3 + K5), 150 ticks, against the CPU in f64 -------
+    joy1 = joysticks(1, device=dev)
+    inputs = tick_inputs(joy1, CLOSED_TICKS)
+    s0 = ctl.initial_state(1)
+    zero_launches()
+    t = time.perf_counter()
+    s150, tel = ctl.run_episode(s0, inputs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    got = read_launches()
+    add(got)
+    n_mpc = -(-CLOSED_TICKS // every)
+    require(got["spd_inverse"] >= n_mpc and got["admm_fused"] == sqp * n_mpc,
+            f"closed loop B=1 launches {got}, expected admm_fused {sqp} x {n_mpc} MPC ticks")
+    prim, err = closed_invariants("closed loop B=1 fused", tel)
+    _, tel64 = ctl64.run_episode(ctl64.initial_state(1, dtype=torch.float64), tick_inputs(joy1.cpu().double(),
+                                                                                           CLOSED_TICKS))
+    gap, chan = closed_vs_cpu("closed loop B=1 fused", tel, tel64)
+    print(f"phase 9 closed loop B=1 fused (K3 + K5), {CLOSED_TICKS} ticks ({n_mpc} MPC ticks, each a generator call) "
+          f"in {wall:.2f} s: launches {got}; contact flags and fixed feet identical to the CPU f64 run on every "
+          f"tick; first MPC period, largest gap / max(1, |value|) {gap:.2e} ({chan}); mpc_prim max {prim:.2e} (< "
+          f"{PRIM_TOL:g}), |com_meas - com_mpc|_xy max {err:.2e} (< {COM_TRACK_TOL}); final t {float(s150.t):.4f} s, "
+          f"CoM {[round(c, 4) for c in s150.x9[0, :3].tolist()]} {tag}")
+
+    # --- B = 1, dense MPC (K3 + K4), 60 ticks ---------------------------------
+    ctl_dense = RL.WalkingController(cfg_dense, model, weights, device=dev)
+    zero_launches()
+    _, tel_d = ctl_dense.run_episode(ctl_dense.initial_state(1), tick_inputs(joy1, 2 * CLOSED_PERIOD))
+    got = read_launches()
+    add(got)
+    require(got["spd_inverse"] >= 2 and got["symv_packed"] > 0 and got["admm_fused"] == 0,
+            f"closed loop dense launches {got}")
+    prim_d, err_d = closed_invariants("closed loop B=1 dense", tel_d)
+    n = min(tel_d.q.shape[1], tel.q.shape[1])
+    dc = float((tel_d.com_mpc[:, :n] - tel.com_mpc[:, :n]).abs().max())
+    print(f"phase 9 closed loop B=1 dense (K3 + K4), {2 * CLOSED_PERIOD} ticks: launches {got}; mpc_prim max "
+          f"{prim_d:.2e}, |com_meas - com_mpc|_xy max {err_d:.2e}; com_mpc within {dc:.2e} of the fused run {tag}")
+
+    # --- B = 256, the lifted weights, random joysticks, 60 ticks --------------
+    Wl = lifted(W)
+    ctl_l = RL.WalkingController(cfg, model, convert.mann_weights_from_numpy(Wl, device=dev), device=dev)
+    ctl_l64 = RL.WalkingController(cfg, model, convert.mann_weights_from_numpy(Wl, device="cpu", dtype=torch.float64),
+                                   device="cpu")
+    joy = joysticks(256, device=dev)
+    S = 2 * CLOSED_PERIOD
+    zero_launches()
+    s_l = ctl_l.initial_state(256)
+    s60, tel_l = ctl_l.run_episode(s_l, tick_inputs(joy, S))
+    got = read_launches()
+    add(got)
+    require(got["admm_fused"] == sqp * 2, f"closed loop B=256 launches {got}")
+    prim_l, err_l = closed_invariants("closed loop B=256 lifted", tel_l)
+    swinging = int((tel_l.foot_contact < 0.5).any(-1).any(-1).sum())
+    require(swinging > 0, "closed loop B=256 lifted: no foot ever leaves the ground")
+    items = torch.arange(4)
+    _, tel_l64 = ctl_l64.run_episode(ctl_l64.initial_state(4, dtype=torch.float64),
+                                     tick_inputs(joy[items].cpu().double(), S))
+    gap_l, chan_l = closed_vs_cpu("closed loop B=256 lifted", tel_l, tel_l64, items=items.to(dev))
+    print(f"phase 9 closed loop B=256 lifted, {S} ticks: launches {got}; {swinging} of 256 items with a foot in "
+          f"swing; mpc_prim max {prim_l:.2e}, |com_meas - com_mpc|_xy max {err_l:.2e}; items 0-3 against the CPU f64: "
+          f"flags identical on all {S} ticks, first MPC period largest gap {gap_l:.2e} ({chan_l}) {tag}")
+
+    # --- times: WBC ticks alone, the MPC stage, an MPC period by span ---------
+    inp1 = RL.TickInput(*(a[:, 0] for a in inputs))
+    inp256 = RL.TickInput(*(a[:, 0] for a in tick_inputs(joy, 1)))
+    _, w1, sync1 = wbc_walls(ctl, s150, inp1, 29)
+    _, w256, sync256 = wbc_walls(ctl_l, s60, inp256, 29)
+    for B, w, n_sync in ((1, w1, sync1), (256, w256, sync256)):
+        print(f"phase 9 time WBC tick B={B}: p50 {np.percentile(w, 50):.2f} ms, p90 {np.percentile(w, 90):.2f} ms, "
+              f"max {w.max():.2f} ms ({len(w)} ticks, wall, synchronised, sync debug mode off); operations that "
+              f"waited for the card in 3 ticks under the mode: {sum(n_sync.values())} {n_sync or ''} {tag}")
+        require(not n_sync, f"WBC tick B={B}: operations waited for the card: {n_sync}")
+    for B, c, s_at, inp in ((1, ctl, s150, inp1), (256, ctl_l, s60, inp256)):
+        walls = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            c._mpc_stage(s_at, inp)
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t) * 1e3)
+        print(f"phase 9 time MPC stage B={B} (generator call + fused solve + glue): "
+              f"{', '.join(f'{x:.1f}' for x in walls)} ms (wall, 3 calls) {tag}")
+    period_in = tick_inputs(joy, every)
+    mpc_period(ctl_l, s60, period_in, S)  # warm
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    mpc_period(ctl_l, s60, period_in, S)
+    torch.cuda.synchronize()
+    period_wall = (time.perf_counter() - t) * 1e3
+    spans, (dev_ms, kernels) = span_profile(ctl_l, s60, period_in, S)
+    print(f"phase 9 profile MPC period B=256 ({every} ticks: 1 MPC stage + {every} WBC stages): wall "
+          f"{period_wall:.1f} ms (unprofiled), device {dev_ms:.3f} ms in {kernels} kernels, idle share "
+          f"{1 - dev_ms / period_wall:.3f} {tag}")
+    for name, (ms, count, host) in spans.items():
+        print(f"phase 9 profile MPC period B=256 span {name}: device {ms:.3f} ms "
+              f"({100 * ms / max(dev_ms, 1e-9):.1f} %), {count} kernels, host {host:.1f} ms under the profiler {tag}")
+    print(f"phase 9 took {time.perf_counter() - t_phase:.1f} s")
     return launches
 
 
@@ -1003,7 +1264,10 @@ def main():
                       f"{key[:70]} {top:.3f} ms {tag}")
 
     # --- 8. joystick -> MANN -> MPC ----------------------------------------
-    l_mann = phase_mann_mpc(tag)
+    l_mann, mann_weights = phase_mann_mpc(tag)
+
+    # --- 9. the closed loop -------------------------------------------------
+    l_closed = phase_closed_loop(tag, mann_weights)
 
     sources = {"spd_inverse": ("cmw_tpu_torch/csrc/spd_inverse.cu", "cmw_tpu/ops/spd_inverse.py:132"),
                "symv_packed": ("cmw_tpu_torch/csrc/symv.cu", "cmw_tpu/ops/symv.py:77"),
@@ -1014,7 +1278,8 @@ def main():
         b_ms, b_by, _, _ = bounds[(name, B512)]
         record["kernels"].append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": l_dense[name] + l_fused[name] + l_mann[name], "max_abs_err": errs[name], "ms": ms, "plain_ms": plain,
+            "launches": l_dense[name] + l_fused[name] + l_mann[name] + l_closed[name], "max_abs_err": errs[name],
+            "ms": ms, "plain_ms": plain,
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib,
         })
     print(json.dumps(record))

@@ -1,7 +1,8 @@
 """cmw_tpu_torch — PyTorch/CUDA port of the cmw_tpu centroidal-MPC stack.
 
-A second implementation of `cmw_tpu`'s MPC level (the MANN trajectory
-generator and `cmw_tpu.cmpc.CentroidalMPCSolver.solve`) for one NVIDIA
+A second implementation of `cmw_tpu` (the MANN trajectory generator,
+`cmw_tpu.cmpc.CentroidalMPCSolver.solve`, the whole-body level and the
+closed-loop walking controller on the kinematic plant) for one NVIDIA
 H100, written batch-first (`[B, ...]` tensors) in plain PyTorch, with
 the three Pallas TPU kernels of the dense-KKT path rewritten by hand in CUDA
 C++ for `sm_90a` (`csrc/`). Its entry points put their tensors on the card
@@ -10,7 +11,12 @@ C++ for `sm_90a` (`csrc/`). Its entry points put their tensors on the card
   core/        centroidal dynamics, contact plans, Lie groups, splines,
                integrators, floating-base kinematics (+ models/ergocub.urdf)
   mann/        MANN network, ONNX reader, joystick input builder, generator
-  cmpc/        formulation, ADMM QP, parametric Riccati x-update, SQP solver
+  cmpc/        formulation, ADMM QP, the IK's equality (+ box) QPs,
+               parametric Riccati x-update, SQP solver
+  wbc/         swing foot, ZMP, CoM-ZMP stabilizer, differential IK
+  estimation/  fixed-foot detector, legged odometry
+  sim/         the kinematic plant (servo lag, sensor noise)
+  runtime/     config presets, the closed-loop WalkingController, telemetry
   ops/         hand-written Hopper kernels (SPD inverse, packed symv, fused
                ADMM), each with a plain PyTorch twin and a launch counter
   convert.py   numpy <-> tensor converters for the port's containers

@@ -6,9 +6,10 @@ same field names) holding numpy arrays with a leading batch axis, and
 returns the port's container of tensors on the given device (the card
 unless the caller passes another) and dtype. The solver's containers are
 the per-solve parameters, the contact plan and the warm start; the MANN
-generator's are its weights (no batch axis) and its state.
-`solution_to_numpy` and `generator_state_to_numpy` go back, to a dict of
-numpy arrays. `config_from_dict` inverts `dataclasses.asdict` of the JAX
+generator's are its weights (no batch axis) and its state; the walking
+controller's are its `LoopState` (with the plant's state but not its noise
+stream) and `TickInput`. `solution_to_numpy`, `generator_state_to_numpy` and
+`loop_state_to_numpy` go back, to a dict of numpy arrays. `config_from_dict` inverts `dataclasses.asdict` of the JAX
 `MPCConfig` (lists, as from JSON, become tuples again).
 `robot_model_from_numpy` copies the numpy fields of a JAX `RobotModel`, so
 that both packages run the identical model.
@@ -27,7 +28,10 @@ from cmw_tpu_torch.cmpc.solver import WarmStart
 from cmw_tpu_torch.core.contacts import ContactPlan, MPCStageParams
 from cmw_tpu_torch.core.kinematics import RobotModel
 from cmw_tpu_torch.mann.generator import GeneratorState
+from cmw_tpu_torch.estimation.legged_odom import OdometryState
 from cmw_tpu_torch.mann.network import MANNWeights
+from cmw_tpu_torch.runtime.loop import DynConfig, LoopState, StoredMann, TickInput
+from cmw_tpu_torch.sim.plant import PlantState
 
 
 def _get(obj, name):
@@ -38,10 +42,11 @@ def _convert(cls, obj, device, dtype, nested=None):
     nested = nested or {}
     fields = {}
     for name in cls._fields:
-        value = _get(obj, name)
         if name in nested:
+            value = obj.get(name) if isinstance(obj, Mapping) else getattr(obj, name, None)
             fields[name] = nested[name](value, device=device, dtype=dtype)
         else:
+            value = _get(obj, name)
             fields[name] = torch.as_tensor(np.array(value), dtype=dtype, device=device)
     return cls(**fields)
 
@@ -94,11 +99,54 @@ def robot_model_from_numpy(model) -> RobotModel:
 
 def solution_to_numpy(sol) -> dict:
     """A port NamedTuple (an `MPCSolution`, or any other, nested ones too) ->
-    a dict of numpy arrays with the same field names."""
+    a dict of numpy arrays with the same field names; fields that hold no
+    tensor (None, a noise generator) are left out."""
     out = {}
     for name, value in sol._asdict().items():
-        out[name] = solution_to_numpy(value) if hasattr(value, "_asdict") else value.detach().cpu().numpy()
+        if hasattr(value, "_asdict"):
+            out[name] = solution_to_numpy(value)
+        elif isinstance(value, torch.Tensor):
+            out[name] = value.detach().cpu().numpy()
     return out
+
+
+def _long(value, *, device, dtype):
+    return torch.as_tensor(np.array(value), dtype=torch.long, device=device)
+
+
+def _plant_from_numpy(plant, *, device, dtype) -> PlantState:
+    q_act = torch.as_tensor(np.array(_get(plant, "q_act")), dtype=dtype, device=device)
+    rng = torch.Generator(device=device)
+    rng.manual_seed(0)
+    return PlantState(q_act=q_act, dq_act=torch.as_tensor(np.array(_get(plant, "dq_act")), dtype=dtype,
+                                                          device=device), rng=rng)
+
+
+def loop_state_from_numpy(state, *, device="cuda", dtype=torch.float32) -> LoopState:
+    """A JAX `LoopState` (or a dict of its fields, nested containers as
+    dicts or NamedTuples) with a leading batch axis -> the port's LoopState.
+    The plant's noise key cannot carry over: a new generator seeded with 0
+    takes its place; the rigid-body state is dropped (None)."""
+    def odo(value, *, device, dtype):
+        return _convert(OdometryState, value, device, dtype, nested={"fixed_index": _long})
+
+    def mann(value, *, device, dtype):
+        return _convert(StoredMann, value, device, dtype, nested={"plan": plan_from_numpy})
+
+    nested = {"tick": _long, "warm": warm_from_numpy, "plan": plan_from_numpy,
+              "gen_state": generator_state_from_numpy, "plant": _plant_from_numpy, "rb": lambda value, **_: None,
+              "mann": mann, "odo": odo, "dyn": lambda value, **kw: _convert(DynConfig, value, **kw)}
+    return _convert(LoopState, state, device, dtype, nested=nested)
+
+
+def loop_state_to_numpy(state: LoopState) -> dict:
+    """The port's LoopState -> nested dicts of numpy arrays (no noise
+    generator, no rigid-body state)."""
+    return solution_to_numpy(state)
+
+
+def tick_input_from_numpy(inp, *, device="cuda", dtype=torch.float32) -> TickInput:
+    return _convert(TickInput, inp, device, dtype)
 
 
 def _tuples(value):

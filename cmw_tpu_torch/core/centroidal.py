@@ -14,6 +14,8 @@ from __future__ import annotations
 
 import torch
 
+from cmw_tpu_torch.core.consts import constant_like
+
 GRAVITY = 9.80665
 
 
@@ -27,7 +29,7 @@ def cross(a, b):
 
 def gravity_vector(like):
     """[0, 0, -GRAVITY] with the dtype and device of `like`."""
-    return torch.tensor([0.0, 0.0, -GRAVITY], dtype=like.dtype, device=like.device)
+    return constant_like((0.0, 0.0, -GRAVITY), like)
 
 
 def pack_state(com, vcom, ang_mom):

@@ -10,11 +10,12 @@ limits, positions integrated from the limited velocity over K knots.
 from __future__ import annotations
 
 import dataclasses
-import functools
 from typing import NamedTuple
 
 import numpy as np
 import torch
+
+from cmw_tpu_torch.core.consts import device_constant as _device_constant
 
 
 @dataclasses.dataclass(frozen=True)
@@ -31,14 +32,6 @@ class InputBuilderConfig:
     max_facing_angle_side_same_sign: float = 0.17
     number_of_knots: int = 7
     time_horizon: float = 0.8  # mann.ini:15
-
-
-@functools.lru_cache(maxsize=64)
-def _device_constant(values: tuple, device: torch.device, dtype: torch.dtype) -> torch.Tensor:
-    """A constant tensor made once per (values, device, dtype): a tensor made
-    from host data on the card is a copy that waits for the card, so the
-    per-step code reuses these instead. Never written to."""
-    return torch.tensor(values, dtype=dtype, device=device)
 
 
 class DesiredBaseTrajectory(NamedTuple):

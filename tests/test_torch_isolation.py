@@ -1,6 +1,6 @@
 """The port runs without JAX: importing `cmw_tpu_torch` (and `chip_smoke.py`),
-running a solve and a MANN rollout loads neither `jax` nor the JAX package
-`cmw_tpu`."""
+running a solve, a MANN rollout and a few ticks of the walking controller
+loads neither `jax` nor the JAX package `cmw_tpu`."""
 
 import os
 import subprocess
@@ -42,6 +42,16 @@ state = generator.initial_state(generator.GeneratorConfig(), model,
 desired = input_builder.build_desired_trajectory(torch.tensor([[0.8, 0.0]]), torch.tensor([[1.0, 0.0]]))
 _, out = generator.generate(generator.GeneratorConfig(), model, weights, state, desired)
 assert out.com.shape == (1, 40, 3) and bool(torch.isfinite(out.com).all())
+from cmw_tpu_torch.cmpc import qp
+from cmw_tpu_torch.estimation import fixed_foot, legged_odom
+from cmw_tpu_torch.runtime import config, loop, telemetry
+from cmw_tpu_torch.sim import plant
+from cmw_tpu_torch.wbc import com_zmp, diff_ik, swing_foot, zmp
+
+ctl = loop.WalkingController(config.ergocub_gazebo_v1(mpc=ergocub_mpc_config(horizon=0.6)), model, weights,
+                             device="cpu")
+s, tel = ctl.run_episode(ctl.initial_state(1), loop.constant_inputs(3, (0.8, 0.0, 1.0, 0.0), device="cpu"))
+assert tel.q.shape == (1, 3, 26) and bool(torch.isfinite(tel.com_mpc).all()) and int(s.tick[0]) == 3
 loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "cmw_tpu"))
 print("LOADED", loaded)
 assert not loaded, loaded
