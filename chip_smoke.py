@@ -73,13 +73,27 @@ calls, alone and fed by the MANN trajectory generator, and checks it:
      kinematic plant), tick after tick: 150 ticks at B = 1 on the fused MPC
      (K3, K5) against the port on the CPU in f64 (contact flags and fixed feet
      identical on every tick, every telemetry channel within CLOSED_TOL over
-     the first MPC period), 60 ticks at B = 1 on the dense MPC (K3, K4), 60
+     the first MPC period), 30 ticks at B = 1 on the dense MPC (K3, K4), 60
      ticks at B = 256 on the lifted weights with random joysticks (4 items
      against the CPU f64, a foot in swing), each episode within mpc_prim <
      1e-2 and |com_meas - com_mpc|_xy < 0.09; K5 must launch sqp_iters times
      per MPC tick; printed: the WBC tick's wall at B = 1 and 256 (with the
      number of operations in it that waited for the card), the MPC stage's
-     wall, and one profiled MPC period at B = 256 split by the loop's spans.
+     wall, and one profiled MPC period at B = 256 split by the loop's spans;
+ 10. the closed loop on the rigid-body plant (`cfg.rigid`, the Gazebo
+     stand-in: Lagrangian dynamics, penalty contact at the 8 sole corners,
+     servos, 2 substeps a tick), joystick -> MANN -> MPC -> IK -> dynamics:
+     `initial_state` settles the plant (total corner fz within 10 % of mg,
+     |nu| < 0.1); 90 standing ticks at B = 1 on the fused MPC (K3, K5)
+     against the port on the CPU in f64 from the same settled state (contact flags, fixed feet and
+     active corners identical on every tick, every channel within RIGID_TOL
+     over the first MPC period); 60 ticks at B = 256 on the lifted weights
+     with random joysticks and per-item contact_mu and servo_kp (4 items
+     against the CPU f64); on every tick base_act_up > 0.8, base z > 0.55 m,
+     mpc_prim < 1e-2 and every channel finite; K5 must launch sqp_iters
+     times per MPC tick and a rigid WBC tick must not wait for the card;
+     printed: the settle's wall, the rigid WBC tick's wall at B = 1 and 256,
+     its launches, and one profiled B = 256 MPC period by span.
 
 It imports nothing of JAX. Without a CUDA device it fails. The last two
 lines are the kernels' JSON record and {"ok": true, "device": {...}}.
@@ -115,6 +129,7 @@ from cmw_tpu_torch.ops import spd_inverse as K3
 from cmw_tpu_torch.ops import symv as K4
 from cmw_tpu_torch.runtime import loop as RL
 from cmw_tpu_torch.runtime.config import ergocub_gazebo_v1
+from cmw_tpu_torch.sim import rigid_body as RB
 
 T0 = 1.02  # left foot swinging: its next footstep is adjustable
 RESID_TOL = 1e-4  # ||I - M X||_inf, the inverse's done-check
@@ -295,11 +310,16 @@ def device_time(fn):
 
 def profile_stages(fn, stages):
     """{stage: (launches, device ms)} of one call of `fn` for each (kernel
-    name, stage) of `stages`."""
-    got = {stage: (count, ms) for key, count, ms in profile(fn) for kernel, stage in stages
-           if f"{kernel}(" in key or f"{kernel}<" in key}
-    require(len(got) == len(stages), f"profile found only {sorted(got)}")
-    return got
+    name, stage) of `stages`. A profiler pass now and then drops a kernel's
+    record (seen once on an H100: a symv pass without its partials kernel),
+    so up to 3 passes are taken until one records every stage: a second
+    drop in a row has not been seen, a third pass is the margin."""
+    for _ in range(3):
+        got = {stage: (count, ms) for key, count, ms in profile(fn) for kernel, stage in stages
+               if f"{kernel}(" in key or f"{kernel}<" in key}
+        if len(got) == len(stages):
+            return got
+    require(False, f"profile found only {sorted(got)} in each of 3 passes")
 
 
 def bound(nbytes, flops):
@@ -801,7 +821,7 @@ CLOSED_TOL_DEFAULT = 1e-4
 FLAG_CHANNELS = ("foot_contact", "fixed_foot_idx")  # identical on every tick
 COM_TRACK_TOL = 0.09  # max |com_meas - com_mpc|_xy, the closed-loop bound of tests/test_runtime.py:40
 PRIM_TOL = 1e-2
-SPANS = ("mann", "mpc.solve", "mpc.other", "wbc.estimation", "wbc.ik", "wbc.other")  # runtime/loop.py
+SPANS = ("mann", "mpc.solve", "mpc.other", "wbc.plant", "wbc.estimation", "wbc.ik", "wbc.other")  # runtime/loop.py
 
 
 def tick_inputs(joy, S):
@@ -885,9 +905,14 @@ def mpc_period(ctl, s, inputs, tick0):
 
 def span_profile(ctl, s, inputs, tick0):
     """One torch.profiler pass over an MPC period: {span: [device ms, kernels,
-    host ms]}, the kernels each span of runtime/loop.py launched (innermost
-    span) and the span's own host time under the profiler, and (device ms,
-    kernels) of the whole pass."""
+    host ms]}: the device time and count of the kernels, copies and fills
+    launched while each span of runtime/loop.py was open (by the launch's
+    time on the host, so that the work of the autograd engine's own thread,
+    the rigid plant's backward passes, counts in the span that waits for it),
+    the span's host time under the profiler, and (device ms, kernels) of the
+    whole pass."""
+    import bisect
+
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile as torch_profile
 
@@ -896,17 +921,29 @@ def span_profile(ctl, s, inputs, tick0):
         mpc_period(ctl, s, inputs, tick0)
         torch.cuda.synchronize()
     spans = {name: [0.0, 0, 0.0] for name in SPANS + ("outside the spans",)}
-    for ev in prof.events():
-        if ev.device_type == DeviceType.CPU and ev.name in SPANS:
-            spans[ev.name][2] += ev.cpu_time_total / 1e3
-        if ev.device_type != DeviceType.CPU or not ev.kernels:
+    # the launch times of the kernels' host calls are in the profiler's raw
+    # events (kineto_results, not a public API); the averaged events only link
+    # a kernel to its op, not to a span open on another thread
+    results = getattr(getattr(prof, "profiler", None), "kineto_results", None)
+    require(results is not None and hasattr(results, "events"),
+            f"span_profile: torch {torch.__version__}'s profiler has no kineto_results.events(), which this "
+            f"attribution by launch time reads")
+    events = results.events()
+    opened = sorted((e.start_ns(), e.end_ns(), e.name()) for e in events
+                    if e.device_type() == DeviceType.CPU and e.name() in SPANS)
+    starts = [o[0] for o in opened]
+    for t0, t1, name in opened:
+        spans[name][2] += (t1 - t0) / 1e6
+    launched = {e.correlation_id(): e.start_ns() for e in events
+                if e.device_type() == DeviceType.CPU and e.correlation_id() > 0}
+    for e in events:
+        if e.device_type() != DeviceType.CUDA or e.is_user_annotation():
             continue
-        parent = ev
-        while parent is not None and parent.name not in SPANS:
-            parent = parent.cpu_parent
-        slot = spans[parent.name if parent is not None else "outside the spans"]
-        slot[0] += sum(k.duration for k in ev.kernels) / 1e3
-        slot[1] += len(ev.kernels)
+        t = launched.get(e.linked_correlation_id(), e.start_ns())  # (unlinked: its own start)
+        i = bisect.bisect_right(starts, t) - 1
+        slot = spans[opened[i][2] if i >= 0 and t <= opened[i][1] else "outside the spans"]
+        slot[0] += e.duration_ns() / 1e6
+        slot[1] += 1
     return spans, (sum(v[0] for v in spans.values()), sum(v[1] for v in spans.values()))
 
 
@@ -955,18 +992,18 @@ def phase_closed_loop(tag, weights, dev="cuda"):
           f"{PRIM_TOL:g}), |com_meas - com_mpc|_xy max {err:.2e} (< {COM_TRACK_TOL}); final t {float(s150.t):.4f} s, "
           f"CoM {[round(c, 4) for c in s150.x9[0, :3].tolist()]} {tag}")
 
-    # --- B = 1, dense MPC (K3 + K4), 60 ticks ---------------------------------
+    # --- B = 1, dense MPC (K3 + K4), 30 ticks ---------------------------------
     ctl_dense = RL.WalkingController(cfg_dense, model, weights, device=dev)
     zero_launches()
-    _, tel_d = ctl_dense.run_episode(ctl_dense.initial_state(1), tick_inputs(joy1, 2 * CLOSED_PERIOD))
+    _, tel_d = ctl_dense.run_episode(ctl_dense.initial_state(1), tick_inputs(joy1, CLOSED_PERIOD))
     got = read_launches()
     add(got)
-    require(got["spd_inverse"] >= 2 and got["symv_packed"] > 0 and got["admm_fused"] == 0,
+    require(got["spd_inverse"] >= 1 and got["symv_packed"] > 0 and got["admm_fused"] == 0,
             f"closed loop dense launches {got}")
     prim_d, err_d = closed_invariants("closed loop B=1 dense", tel_d)
     n = min(tel_d.q.shape[1], tel.q.shape[1])
     dc = float((tel_d.com_mpc[:, :n] - tel.com_mpc[:, :n]).abs().max())
-    print(f"phase 9 closed loop B=1 dense (K3 + K4), {2 * CLOSED_PERIOD} ticks: launches {got}; mpc_prim max "
+    print(f"phase 9 closed loop B=1 dense (K3 + K4), {CLOSED_PERIOD} ticks: launches {got}; mpc_prim max "
           f"{prim_d:.2e}, |com_meas - com_mpc|_xy max {err_d:.2e}; com_mpc within {dc:.2e} of the fused run {tag}")
 
     # --- B = 256, the lifted weights, random joysticks, 60 ticks --------------
@@ -1028,6 +1065,334 @@ def phase_closed_loop(tag, weights, dev="cuda"):
         print(f"phase 9 profile MPC period B=256 span {name}: device {ms:.3f} ms "
               f"({100 * ms / max(dev_ms, 1e-9):.1f} %), {count} kernels, host {host:.1f} ms under the profiler {tag}")
     print(f"phase 9 took {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
+# --- the closed loop on the rigid-body plant ----------------------------------
+# (cmw_tpu/runtime/loop.py WalkingController with cfg.rigid, sim/rigid_body.py)
+
+RIGID_TICKS = 90  # 3 MPC ticks standing at B = 1
+RIGID_SWEEP_B = 256
+RIGID_SWEEP_TICKS = 60  # 2 MPC ticks at B = 256; the lifted left foot swings from tick 30
+RIGID_CHECKED = 4  # items of the B = 256 sweep held against the CPU
+# the sweep's push on the base, mass-normalised (m/s^2), over the first MPC
+# period, on the odd items: ~0.7 m/s of impulse at full strength, the impulse
+# of the push sweep's largest push (2 m/s^2 for 0.4 s). Checked items 1 and 3
+# get it at full strength toward RIGID_PUSH_DIRS (degrees from +x), the other
+# odd items in a random direction at a random strength up to it; the even
+# items, 0 and 2 among them, are not pushed. The fused MPC's 24 ADMM
+# iterations leave mpc_prim above PRIM_TOL while it measures a push this
+# strong (up to ~0.2 at the pushed tick 0, on the CPU), so the pushed items
+# are held upright and finite, the unpushed ones to PRIM_TOL as well.
+RIGID_PUSH = 12.0
+RIGID_PUSH_DIRS = (0.0, 270.0)
+# card f32 against CPU f64 over the first MPC period, per channel, of
+# max(1, max |CPU value|): 20 times the port's own CPU f32-vs-f64 gap
+# (`rigid_cpu_gap`), rounded up, and never below phase 9's 1e-4. On the B = 1
+# stand episode: ft_act 2.4e-3 (the stiff friction anchors turning ulps of
+# position into newtons), fz_act 6.6e-5, dq_cmd 8.6e-6, forces0 7.0e-6, every
+# other channel at most 4.0e-6. On the pushed sweep's checked items (B = 256)
+# every channel is below that but vcom_zmp, 6.0e-6.
+RIGID_TOL = {"ft_act": 5e-2, "fz_act": 2e-3, "dq_cmd": 2e-4, "forces0": 2e-4}
+RIGID_TOL_DEFAULT = 1e-4
+RIGID_PUSH_TOL = dict(RIGID_TOL, vcom_zmp=2e-4)
+# the settled plant (initial_state), card f32 against the CPU's f64 settle,
+# per field of the rigid-body state and the CoM state x9, of max(1, max |CPU
+# value|): 20 times the port's own CPU f32-vs-f64 gap of the same settle
+# (`rigid_cpu_gap`: corner_forces 5.9e-4, nu 1.6e-5, servo_int 1.4e-5, every
+# other field at most 1.1e-6), rounded up, and never below 1e-4
+SETTLE_TOL = {"corner_forces": 2e-2, "nu": 4e-4, "servo_int": 3e-4}
+SETTLE_TOL_DEFAULT = 1e-4
+RIGID_UP = 0.8  # base_act_up: cos of the base tilt (tests/test_rigid_loop.py:106)
+RIGID_Z = 0.55  # m, the lowest base height (tests/test_rigid_loop.py:108)
+
+
+def items_of(s, idx):
+    """Items idx of a LoopState (each tensor's batch axis indexed; the noise
+    generator shared)."""
+    if isinstance(s, torch.Tensor):
+        return s[idx]
+    if isinstance(s, tuple):
+        return type(s)(*(items_of(a, idx) for a in s))
+    return s
+
+
+def to_cpu64(s):
+    """A LoopState on the CPU in float64, through the numpy converters."""
+    return convert.loop_state_from_numpy(convert.loop_state_to_numpy(s), device="cpu", dtype=torch.float64)
+
+
+def with_plant_params(s, **values):
+    """s with the rigid plant's parameters set per item (values [B] each)."""
+    return s._replace(rb=s.rb._replace(params=s.rb.params._replace(**values)))
+
+
+def sweep_pushes(B, gen):
+    """[B, 3] mass-normalised pushes: none on the even items, RIGID_PUSH
+    toward RIGID_PUSH_DIRS on items 1 and 3, a random direction and strength
+    up to it on the other odd items."""
+    ang = torch.rand(B, generator=gen, dtype=torch.float64) * 2.0 * np.pi
+    mag = torch.rand(B, generator=gen, dtype=torch.float64) * RIGID_PUSH
+    ang[[1, 3]] = torch.deg2rad(torch.tensor(RIGID_PUSH_DIRS, dtype=torch.float64))
+    mag[[1, 3]] = RIGID_PUSH
+    mag[0::2] = 0.0
+    return torch.stack([mag * torch.cos(ang), mag * torch.sin(ang), torch.zeros_like(ang)], dim=-1)
+
+
+def pushed_inputs(joy, push, S):
+    """TickInput [B, S, ...]: the joystick joy [B, 4] on every tick, the push
+    [B, 3] over the first MPC period (CLOSED_PERIOD ticks)."""
+    inputs = tick_inputs(joy, S)
+    ext = inputs.ext_force.clone()
+    ext[:, :CLOSED_PERIOD] = push[:, None].to(ext)
+    return inputs._replace(ext_force=ext)
+
+
+def rigid_run(ctl, s, inputs):
+    """inputs [B, S, ...] tick by tick from tick 0. Returns (state, Telemetry
+    [B, S, ...], active corners [B, S, nc, ncor] (bool, after each tick))."""
+    tels, active = [], []
+    for k in range(inputs.joypad.shape[1]):
+        s, tel = ctl.step(s, RL.TickInput(*(a[:, k] for a in inputs)), k)
+        tels.append(tel)
+        active.append(s.rb.corner_forces[..., 2] > 0)
+    return s, RL.Telemetry(*(torch.stack(parts, dim=1) for parts in zip(*tels))), torch.stack(active, dim=1)
+
+
+def rigid_invariants(name, tel, solved=True):
+    """Every channel finite, and on every tick base_act_up > RIGID_UP, base z
+    > RIGID_Z and, if `solved`, mpc_prim < PRIM_TOL. Returns (min up, min z,
+    max prim)."""
+    bad = [n for n, v in tel._asdict().items() if not bool(torch.isfinite(v).all())]
+    require(not bad, f"{name}: non-finite channels {bad}")
+    up, z, prim = float(tel.base_act_up.min()), float(tel.base_act_pos[..., 2].min()), float(tel.mpc_prim.max())
+    require(up > RIGID_UP and z > RIGID_Z and (prim < PRIM_TOL or not solved),
+            f"{name}: base_act_up min {up}, base z min {z}, mpc_prim max {prim}")
+    return up, z, prim
+
+
+def rigid_vs_cpu(name, tel, active, tel64, active64, tol, items=None):
+    """The card's run (items of it) against the CPU f64 run: contact flags,
+    fixed feet and active corners identical on every tick the CPU ran, every
+    channel within tol (else RIGID_TOL_DEFAULT) over the first MPC period.
+    Returns the largest gap and its channel."""
+    pick = (lambda v: v) if items is None else (lambda v: v[items])
+    ticks = tel64.q.shape[1]
+    for n in FLAG_CHANNELS:
+        require(torch.equal(pick(getattr(tel, n))[:, :ticks].cpu().double(), getattr(tel64, n)),
+                f"{name}: {n} differs between the card and the CPU")
+    require(torch.equal(pick(active)[:, :ticks].cpu(), active64), f"{name}: active corners differ")
+    worst = (0.0, "")
+    for n, want in tel64._asdict().items():
+        want = want[:, :CLOSED_PERIOD]
+        got = pick(getattr(tel, n))[:, :CLOSED_PERIOD].cpu().double()
+        gap = float((got - want).abs().max()) / max(1.0, float(want.abs().max()))
+        require(gap <= tol.get(n, RIGID_TOL_DEFAULT), f"{name}: {n} card vs CPU f64 {gap}")
+        worst = max(worst, (gap, n))
+    return worst
+
+
+def settle_gaps(s, s64):
+    """{field: |s - s64| / max(1, |s64|)} over the rigid-body state's fields
+    (its parameters aside) and x9, s on any device, s64 the CPU f64 one."""
+    pairs = [(n, getattr(s.rb, n), getattr(s64.rb, n)) for n in RB.RigidBodyState._fields if n != "params"]
+    return {n: float((a.cpu().double() - b).abs().max()) / max(1.0, float(b.abs().max()))
+            for n, a, b in pairs + [("x9", s.x9, s64.x9)]}
+
+
+def rigid_setup():
+    """Phase 10's configuration, model and the synthetic weights, plain and
+    lifted."""
+    W = synthetic_mann_numpy()
+    cfg = ergocub_gazebo_v1(rigid=RB.RigidBodyConfig(), mpc=ergocub_mpc_config(kkt_impl="dense", admm_impl="fused"))
+    return cfg, kin.ergocub_urdf(), W, lifted(W)
+
+
+def rigid_cpu_gap():
+    """The port's own f32-vs-f64 gaps on the CPU behind SETTLE_TOL, RIGID_TOL
+    and RIGID_PUSH_TOL: the settle of initial_state, phase 10's B = 1 stand
+    episode (RIGID_TICKS) and its pushed sweep's checked items (lifted
+    weights, RIGID_SWEEP_TICKS) with their plant parameters. Prints, per
+    field or telemetry channel, the largest difference / max(1, |f64 value|)
+    (episodes: over the first MPC period and over the rest), and whether the
+    flags and active corners agree. Run it as
+    python3 -c 'import chip_smoke; chip_smoke.rigid_cpu_gap()'."""
+    cfg, model, W, Wl = rigid_setup()
+    gen = torch.Generator().manual_seed(10)
+    mu, kp, push = (a[:RIGID_CHECKED] for a in (*sweep_params(RIGID_SWEEP_B, gen), sweep_pushes(RIGID_SWEEP_B, gen)))
+    joy = joysticks(RIGID_CHECKED, device="cpu")
+    runs = {}
+    for dt in (torch.float32, torch.float64):
+        ctl, ctl_l = (RL.WalkingController(cfg, model, convert.mann_weights_from_numpy(w, device="cpu", dtype=dt),
+                                           device="cpu") for w in (W, Wl))
+        t = time.perf_counter()
+        s0 = ctl.initial_state(1, dtype=dt)
+        print(f"{dt} initial state (polish and settle) {time.perf_counter() - t:.1f} s")
+        stand = torch.tensor([[0.0, 0.0, 1.0, 0.0]], dtype=dt)
+        stood = rigid_run(ctl, s0, tick_inputs(stand, RIGID_TICKS))[1:]
+        s_l = with_plant_params(items_of(s0, torch.zeros(RIGID_CHECKED, dtype=torch.long)),
+                                contact_mu=mu.to(dt), servo_kp=kp.to(dt))
+        swept = rigid_run(ctl_l, s_l, pushed_inputs(joy.to(dt), push, RIGID_SWEEP_TICKS))[1:]
+        runs[dt] = (s0, stood, swept)
+    (s0, *eps32), (s0_64, *eps64) = runs[torch.float32], runs[torch.float64]
+    for n, gap in settle_gaps(s0, s0_64).items():
+        print(f"settle {n}: {gap:.3e}")
+    print(f"settle active corners identical "
+          f"{torch.equal(s0.rb.corner_forces[..., 2] > 0, s0_64.rb.corner_forces[..., 2] > 0)}")
+    for name, (tel, active), (tel64, active64) in zip(("stand B=1", "pushed sweep items"), eps32, eps64):
+        same = all(torch.equal(getattr(tel, n).double(), getattr(tel64, n)) for n in FLAG_CHANNELS)
+        print(f"{name}: flags identical {same}, active corners identical {torch.equal(active, active64)}")
+        ticks = tel64.q.shape[1]
+        for n, want in tel64._asdict().items():
+            got = getattr(tel, n).double()
+            gaps = [float((got[:, a:b] - want[:, a:b]).abs().max()) / max(1.0, float(want[:, a:b].abs().max()))
+                    for a, b in ((0, CLOSED_PERIOD), (CLOSED_PERIOD, ticks))]
+            print(f"{name} {n}: first MPC period {gaps[0]:.3e}, after {gaps[1]:.3e}")
+
+
+def sweep_params(B, gen):
+    """Per-item plant parameters of the sweep ([B] float64 each): contact_mu
+    in [0.6, 1.0], servo_kp in [2500, 3500]."""
+    mu = 0.6 + 0.4 * torch.rand(B, generator=gen, dtype=torch.float64)
+    kp = 2500.0 + 1000.0 * torch.rand(B, generator=gen, dtype=torch.float64)
+    return mu, kp
+
+
+def phase_rigid_loop(tag, dev="cuda"):
+    """Phase 10: the walking controller on the rigid-body plant, joystick ->
+    MANN -> MPC -> IK -> Lagrangian dynamics, tick after tick on the card.
+    Returns the launches of its main path (the B = 1 and B = 256 episodes)."""
+    t_phase = time.perf_counter()
+    cfg, model, W, Wl = rigid_setup()
+    ctl = RL.WalkingController(cfg, model, convert.mann_weights_from_numpy(W, device=dev), device=dev)
+    ctl64 = RL.WalkingController(cfg, model, convert.mann_weights_from_numpy(W, device="cpu", dtype=torch.float64),
+                                 device="cpu")
+    ctl_l = RL.WalkingController(cfg, model, convert.mann_weights_from_numpy(Wl, device=dev), device=dev)
+    ctl_l64 = RL.WalkingController(cfg, model, convert.mann_weights_from_numpy(Wl, device="cpu", dtype=torch.float64),
+                                   device="cpu")
+    every, sqp = cfg.mpc_every, cfg.mpc.sqp_iters
+    n_settle = int(round(cfg.rigid_settle_s / cfg.wbc_dt))
+    mg = model.total_mass * 9.80665
+    B = RIGID_SWEEP_B
+    launches = {name: 0 for name in KERNELS}
+
+    def add(got):
+        for name, n in got.items():
+            launches[name] += n
+
+    # --- initial_state(256): the settle, against the CPU's f64 settle ---------
+    ctl_l.polished_initial_pose()  # the IK polish, timed apart from the settle
+    ctl_l.polished_initial_pose(drop=0.0)
+    torch.cuda.synchronize()
+    zero_launches()
+    t = time.perf_counter()
+    s_init = ctl_l.initial_state(B)  # initial_state reads no weights: item 0 starts the B = 1 run too
+    torch.cuda.synchronize()
+    settle_s = time.perf_counter() - t
+    s0 = items_of(s_init, slice(0, 1))
+    fz = float(s0.rb.corner_forces[..., 2].sum())
+    nu = float(s0.rb.nu.abs().max())
+    require(abs(fz - mg) / mg < 0.1 and nu < 0.1, f"rigid settle: corner fz {fz} N against mg {mg} N, max|nu| {nu}")
+    t = time.perf_counter()
+    s0_cpu = ctl64.initial_state(1, dtype=torch.float64)
+    cpu_settle_s = time.perf_counter() - t
+    gaps = settle_gaps(s0, s0_cpu)
+    worst = max((g, n) for n, g in gaps.items())
+    for n, g in gaps.items():
+        require(g <= SETTLE_TOL.get(n, SETTLE_TOL_DEFAULT), f"rigid settle: {n} card vs CPU f64 {g}")
+    require(torch.equal(s0.rb.corner_forces[..., 2].cpu() > 0, s0_cpu.rb.corner_forces[..., 2] > 0),
+            "rigid settle: active corners differ between the card and the CPU")
+    print(f"phase 10 rigid settle: initial_state({B}), {n_settle} control ticks ({cfg.rigid.substeps} substeps "
+          f"each) on one item, {settle_s:.2f} s on the card (f32; the CPU's f64 settle {cpu_settle_s:.2f} s); total "
+          f"corner fz {fz:.1f} N against mg {mg:.1f} N ({100 * (fz - mg) / mg:+.2f} %), max|nu| {nu:.2e}; against "
+          f"the CPU f64 settle: active corners identical, largest gap / max(1, |value|) {worst[0]:.2e} ({worst[1]}) "
+          f"{tag}")
+
+    # --- B = 1: 90 standing ticks against the CPU in f64 ------------------------
+    # (the CPU run starts from the card's settled state, in f64)
+    stand = torch.tensor([[0.0, 0.0, 1.0, 0.0]], device=dev)
+    zero_launches()
+    t = time.perf_counter()
+    s90, tel, active = rigid_run(ctl, s0, tick_inputs(stand, RIGID_TICKS))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    got = read_launches()
+    add(got)
+    n_mpc = -(-RIGID_TICKS // every)
+    require(got["spd_inverse"] >= n_mpc and got["admm_fused"] == sqp * n_mpc,
+            f"rigid loop B=1 launches {got}, expected admm_fused {sqp} x {n_mpc} MPC ticks")
+    up, z, prim = rigid_invariants("rigid loop B=1", tel)
+    t = time.perf_counter()
+    _, tel64, active64 = rigid_run(ctl64, to_cpu64(s0), tick_inputs(stand.cpu().double(), RIGID_TICKS))
+    cpu_s = time.perf_counter() - t
+    gap, chan = rigid_vs_cpu("rigid loop B=1", tel, active, tel64, active64, RIGID_TOL)
+    print(f"phase 10 rigid loop B=1 stand, fused (K3 + K5), {RIGID_TICKS} ticks ({n_mpc} MPC ticks) in {wall:.2f} s "
+          f"(the CPU f64 run {cpu_s:.2f} s): launches {got}; contact flags, fixed feet and active corners identical "
+          f"to the CPU f64 run on every tick; first MPC period, largest gap / max(1, |value|) {gap:.2e} ({chan}); "
+          f"base_act_up min {up:.4f} (> {RIGID_UP}), base z min {z:.4f} m (> {RIGID_Z}), mpc_prim max {prim:.2e}; "
+          f"final fz per foot {[round(f, 1) for f in tel.fz_act[0, -1].tolist()]} N {tag}")
+
+    # --- B = 256: lifted weights, random sticks, per-item plant, pushed ------
+    gen = torch.Generator().manual_seed(10)
+    mu, kp = sweep_params(B, gen)
+    push = sweep_pushes(B, gen)
+    joy = joysticks(B, device=dev)
+    S = RIGID_SWEEP_TICKS
+    s_l = with_plant_params(s_init, contact_mu=mu.float().to(dev), servo_kp=kp.float().to(dev))
+    inputs = pushed_inputs(joy, push.float().to(dev), S)
+    zero_launches()
+    t = time.perf_counter()
+    s60, tel_l, active_l = rigid_run(ctl_l, s_l, inputs)
+    torch.cuda.synchronize()
+    wall_l = time.perf_counter() - t
+    got = read_launches()
+    add(got)
+    require(got["admm_fused"] == sqp * (-(-S // every)), f"rigid loop B=256 launches {got}")
+    up_l, z_l, prim_l = rigid_invariants("rigid loop B=256, unpushed items", items_of(tel_l, slice(0, None, 2)))
+    up_p, z_p, prim_p = rigid_invariants("rigid loop B=256, pushed items", items_of(tel_l, slice(1, None, 2)),
+                                         solved=False)
+    swinging = int((tel_l.foot_contact < 0.5).any(-1).any(-1).sum())
+    require(swinging > 0, "rigid loop B=256: no foot ever leaves the ground")
+    rushed = (tel_l.gait_rush > 0).any(-1)
+    items = torch.arange(RIGID_CHECKED)
+    require(bool(rushed[[1, 3]].any()), "rigid loop B=256: the push runs neither checked pushed item's gait rush")
+    _, tel_l64, active_l64 = rigid_run(ctl_l64, to_cpu64(items_of(s_l, items.to(dev))),
+                                       RL.TickInput(*(a[items.to(dev)].cpu().double() for a in inputs)))
+    gap_l, chan_l = rigid_vs_cpu("rigid loop B=256", tel_l, active_l, tel_l64, active_l64, RIGID_PUSH_TOL,
+                                 items=items.to(dev))
+    print(f"phase 10 rigid loop B=256 lifted, per-item contact_mu in [0.6, 1.0] and servo_kp in [2500, 3500], "
+          f"the odd items pushed over the first MPC period (items 1 and 3: {RIGID_PUSH} m/s^2 toward "
+          f"{RIGID_PUSH_DIRS} degrees, the others random up to it), {S} ticks in {wall_l:.2f} s: launches {got}; "
+          f"{swinging} of {B} items with a foot in swing, {int(rushed.sum())} with the gait rush on (items 0-3: "
+          f"{rushed[:RIGID_CHECKED].tolist()}); unpushed: base_act_up min {up_l:.4f}, base z min {z_l:.4f} m, "
+          f"mpc_prim max {prim_l:.2e}; pushed: base_act_up min {up_p:.4f}, base z min {z_p:.4f} m, mpc_prim max "
+          f"{prim_p:.2e} (not held); items 0-3 against the CPU f64: flags and active corners identical on all {S} "
+          f"ticks, first MPC period largest gap {gap_l:.2e} ({chan_l}) {tag}")
+
+    # --- times: rigid WBC ticks alone, their launches, an MPC period by span --
+    inp1 = RL.TickInput(*(a[:, 0] for a in tick_inputs(stand, 1)))
+    inp256 = RL.TickInput(*(a[:, 0] for a in tick_inputs(joy, 1)))
+    for b, c, s_at, inp in ((1, ctl, s90, inp1), (B, ctl_l, s60, inp256)):
+        _, w, n_sync = wbc_walls(c, s_at, inp, 29)
+        dev_ms, count, (key, top) = device_time(lambda: c._wbc_stage(s_at, inp))
+        print(f"phase 10 time rigid WBC tick B={b}: p50 {np.percentile(w, 50):.2f} ms, p90 {np.percentile(w, 90):.2f} "
+              f"ms, max {w.max():.2f} ms ({len(w)} ticks, wall, synchronised, sync debug mode off); one tick "
+              f"profiled: {count} kernels, copies and fills, device {dev_ms:.3f} ms, largest {key[:60]} {top:.3f} "
+              f"ms; operations that waited for the card in 3 ticks under the mode: {sum(n_sync.values())} "
+              f"{n_sync or ''} {tag}")
+        require(not n_sync, f"rigid WBC tick B={b}: operations waited for the card: {n_sync}")
+    # the unprofiled period: the mean of the B = 256 episode's two periods
+    period_wall = wall_l * 1e3 * every / S
+    t = time.perf_counter()
+    spans, (dev_ms, kernels) = span_profile(ctl_l, s60, tick_inputs(joy, every), S)
+    print(f"phase 10 profile pass {time.perf_counter() - t:.1f} s")
+    print(f"phase 10 profile rigid MPC period B=256 ({every} ticks: 1 MPC stage + {every} WBC stages): wall "
+          f"{period_wall:.1f} ms (unprofiled: the mean of the {S}-tick episode's periods), device {dev_ms:.3f} ms "
+          f"in {kernels} kernels, idle share {1 - dev_ms / period_wall:.3f} {tag}")
+    for name, (ms, count, host) in spans.items():
+        print(f"phase 10 profile rigid MPC period B=256 span {name}: device {ms:.3f} ms "
+              f"({100 * ms / max(dev_ms, 1e-9):.1f} %), {count} kernels, host {host:.1f} ms under the profiler {tag}")
+    print(f"phase 10 took {time.perf_counter() - t_phase:.1f} s")
     return launches
 
 
@@ -1269,6 +1634,9 @@ def main():
     # --- 9. the closed loop -------------------------------------------------
     l_closed = phase_closed_loop(tag, mann_weights)
 
+    # --- 10. the closed loop on the rigid-body plant -------------------------
+    l_rigid = phase_rigid_loop(tag)
+
     sources = {"spd_inverse": ("cmw_tpu_torch/csrc/spd_inverse.cu", "cmw_tpu/ops/spd_inverse.py:132"),
                "symv_packed": ("cmw_tpu_torch/csrc/symv.cu", "cmw_tpu/ops/symv.py:77"),
                "admm_fused": ("cmw_tpu_torch/csrc/admm_fused.cu", "cmw_tpu/ops/admm_fused.py:143")}
@@ -1278,7 +1646,8 @@ def main():
         b_ms, b_by, _, _ = bounds[(name, B512)]
         record["kernels"].append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": l_dense[name] + l_fused[name] + l_mann[name] + l_closed[name], "max_abs_err": errs[name],
+            "launches": l_dense[name] + l_fused[name] + l_mann[name] + l_closed[name] + l_rigid[name],
+            "max_abs_err": errs[name],
             "ms": ms, "plain_ms": plain,
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib,
         })

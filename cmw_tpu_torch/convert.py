@@ -8,7 +8,8 @@ unless the caller passes another) and dtype. The solver's containers are
 the per-solve parameters, the contact plan and the warm start; the MANN
 generator's are its weights (no batch axis) and its state; the walking
 controller's are its `LoopState` (with the plant's state but not its noise
-stream) and `TickInput`. `solution_to_numpy`, `generator_state_to_numpy` and
+stream, and the rigid-body plant's `RigidBodyState`) and `TickInput`.
+`solution_to_numpy`, `generator_state_to_numpy`, `rigid_state_to_numpy` and
 `loop_state_to_numpy` go back, to a dict of numpy arrays. `config_from_dict` inverts `dataclasses.asdict` of the JAX
 `MPCConfig` (lists, as from JSON, become tuples again).
 `robot_model_from_numpy` copies the numpy fields of a JAX `RobotModel`, so
@@ -32,6 +33,7 @@ from cmw_tpu_torch.estimation.legged_odom import OdometryState
 from cmw_tpu_torch.mann.network import MANNWeights
 from cmw_tpu_torch.runtime.loop import DynConfig, LoopState, StoredMann, TickInput
 from cmw_tpu_torch.sim.plant import PlantState
+from cmw_tpu_torch.sim.rigid_body import RigidBodyState, RigidDynParams
 
 
 def _get(obj, name):
@@ -122,11 +124,24 @@ def _plant_from_numpy(plant, *, device, dtype) -> PlantState:
                                                           device=device), rng=rng)
 
 
+def rigid_state_from_numpy(state, *, device="cuda", dtype=torch.float32) -> RigidBodyState:
+    """A JAX `RigidBodyState` (or a dict of its fields) with a leading batch
+    axis -> the port's; its plant parameters become tensors [B]."""
+    def params(value, *, device, dtype):
+        return _convert(RigidDynParams, value, device, dtype)
+
+    return _convert(RigidBodyState, state, device, dtype, nested={"params": params})
+
+
+def rigid_state_to_numpy(state: RigidBodyState) -> dict:
+    return solution_to_numpy(state)
+
+
 def loop_state_from_numpy(state, *, device="cuda", dtype=torch.float32) -> LoopState:
     """A JAX `LoopState` (or a dict of its fields, nested containers as
     dicts or NamedTuples) with a leading batch axis -> the port's LoopState.
     The plant's noise key cannot carry over: a new generator seeded with 0
-    takes its place; the rigid-body state is dropped (None)."""
+    takes its place. The rigid-body state carries over where there is one."""
     def odo(value, *, device, dtype):
         return _convert(OdometryState, value, device, dtype, nested={"fixed_index": _long})
 
@@ -134,14 +149,15 @@ def loop_state_from_numpy(state, *, device="cuda", dtype=torch.float32) -> LoopS
         return _convert(StoredMann, value, device, dtype, nested={"plan": plan_from_numpy})
 
     nested = {"tick": _long, "warm": warm_from_numpy, "plan": plan_from_numpy,
-              "gen_state": generator_state_from_numpy, "plant": _plant_from_numpy, "rb": lambda value, **_: None,
+              "gen_state": generator_state_from_numpy, "plant": _plant_from_numpy,
+              "rb": lambda value, **kw: None if value is None else rigid_state_from_numpy(value, **kw),
               "mann": mann, "odo": odo, "dyn": lambda value, **kw: _convert(DynConfig, value, **kw)}
     return _convert(LoopState, state, device, dtype, nested=nested)
 
 
 def loop_state_to_numpy(state: LoopState) -> dict:
     """The port's LoopState -> nested dicts of numpy arrays (no noise
-    generator, no rigid-body state)."""
+    generator; the rigid-body state where there is one)."""
     return solution_to_numpy(state)
 
 

@@ -5,9 +5,7 @@ property of `WalkingConfig` with its default, and the presets
 `ergocub_gazebo_v1` (sim: MPC 16.7 Hz, WBC 500 Hz) and `ergocub_sn000`
 (robot: MPC 10 Hz, WBC 200 Hz, MANN slowed 5x). Each field's full rationale
 is in the JAX package's docstrings at the same name; the fields marked
-"rigid plant only" act only in branches that need the rigid-body plant,
-which the port does not have yet (`WalkingController` refuses a config with
-`rigid` set).
+"(rigid)" act only with the rigid-body plant (`rigid` set).
 """
 
 from __future__ import annotations
@@ -20,6 +18,7 @@ from cmw_tpu_torch.estimation.legged_odom import OdomConfig
 from cmw_tpu_torch.mann.generator import GeneratorConfig
 from cmw_tpu_torch.mann.input_builder import InputBuilderConfig
 from cmw_tpu_torch.sim.plant import PlantConfig
+from cmw_tpu_torch.sim.rigid_body import RigidBodyConfig
 from cmw_tpu_torch.wbc.com_zmp import CoMZMPGains
 from cmw_tpu_torch.wbc.diff_ik import IKConfig
 from cmw_tpu_torch.wbc.swing_foot import SwingFootConfig
@@ -37,10 +36,9 @@ class WalkingConfig:
     input_builder: InputBuilderConfig = InputBuilderConfig()
     odom: OdomConfig = OdomConfig()
     plant: PlantConfig = PlantConfig()  # default: ideal (adherent) plant
-    # the rigid-body plant's config (cmw_tpu/sim/rigid_body.RigidBodyConfig);
-    # None -> the reference's adherent topology. Not ported yet: any other
-    # value makes WalkingController raise NotImplementedError
-    rigid: object | None = None
+    # the rigid-body plant (sim/rigid_body.py, the Gazebo stand-in); None ->
+    # the reference's adherent topology on the kinematic plant
+    rigid: RigidBodyConfig | None = None
     rigid_settle_s: float = 0.4  # pre-episode contact settling time (rigid)
     wbc_dt: float = 0.002  # WHOLE_BODY_RUNNER sampling_time
     plan_phases: int = 16

@@ -1,6 +1,6 @@
 """The closed-loop walking controller, tick after tick, batch-first.
 
-PyTorch counterpart of `cmw_tpu/runtime/loop.py` on the kinematic plant. One
+PyTorch counterpart of `cmw_tpu/runtime/loop.py`. One
 `WalkingController.step` is one WBC tick (wbc_dt); every `mpc_every`-th tick
 first runs the MPC stage:
 
@@ -23,13 +23,21 @@ is decided on the host from a Python-int tick counter (the same for every
 item), so a WBC tick reads nothing back from the card; an MPC tick reads one
 flag vector (does any item call the generator).
 
-The branches that need the rigid-body plant (`cfg.rigid`, cmw_tpu/sim/
-rigid_body.py) are not ported: the controller refuses such a config, and
-each place where JAX branches on it says which lines were left out.
+With `cfg.rigid` set the plant is the rigid-body dynamics
+(`sim/rigid_body.py`, the Gazebo stand-in) and the controller closes the loop
+on its measurements: the spawn settles onto the contact in `initial_state`;
+the MPC stage adds the gait hold and the speed governors, the generator
+re-sync, the contact reconciliation and the capture step; the WBC stage steps
+the plant (the push is a real force on the base), keeps a persistent
+odometry anchor with IMU attitude, feeds the measured state back into the
+integrator, reads the ZMP from the contact forces and adds the touchdown and
+lift gates, the gait rush, the crouch, the chest lean and the rigid-only IK
+rows.
 
 The stages run inside `torch.profiler.record_function` spans: `mann`,
-`mpc.solve` (the MPC stage's other work is `mpc.other`), `wbc.estimation`,
-`wbc.ik` and `wbc.other` (plant, integrators, ZMP, swing feet, telemetry).
+`mpc.solve` (the MPC stage's other work is `mpc.other`), `wbc.plant` (the
+rigid plant's dynamics step), `wbc.estimation`, `wbc.ik` and `wbc.other`
+(the kinematic plant, integrators, ZMP, swing feet, telemetry).
 """
 
 from __future__ import annotations
@@ -54,6 +62,7 @@ from cmw_tpu_torch.mann.input_builder import build_desired_trajectory
 from cmw_tpu_torch.mann.network import MANNWeights
 from cmw_tpu_torch.runtime.config import WalkingConfig
 from cmw_tpu_torch.sim import plant as P
+from cmw_tpu_torch.sim import rigid_body as RB
 from cmw_tpu_torch.wbc import swing_foot
 from cmw_tpu_torch.wbc.com_zmp import com_zmp_control
 from cmw_tpu_torch.wbc.diff_ik import IKTargets, solve_ik
@@ -141,7 +150,7 @@ class LoopState(NamedTuple):
     mpc_cost: torch.Tensor  # [B] last solve diagnostics
     mpc_prim: torch.Tensor  # [B]
     plant: P.PlantState  # simulated robot (servo lag + sensor noise)
-    rb: None  # the rigid-body plant's state: None (not ported)
+    rb: RB.RigidBodyState | None  # the rigid-body plant (None on the kinematic plant)
     com_mann: torch.Tensor  # [B, 3] MANN CoM reference at knot 0
     ang_mom_mann: torch.Tensor  # [B, 3] MANN angular-momentum reference
     hold: torch.Tensor  # [B] 1 while the gait clock is paused (rigid plant)
@@ -150,6 +159,22 @@ class LoopState(NamedTuple):
     mann: StoredMann
     odo: legged_odom.OdometryState
     dyn: DynConfig
+
+
+class RigidMeasurements(NamedTuple):
+    """What the MPC stage measures on the rigid plant before it plans
+    (cmw_tpu/runtime/loop.py:536-599), in the current estimate frame."""
+
+    prev_plan: C.ContactPlan  # the previous plan, snapped to the MPC grid
+    feet_prev: swing_foot.FootState  # its swing feet now
+    load: torch.Tensor  # [B, nc] measured normal force per foot / body weight
+    meas_pos: torch.Tensor  # [B, nc, 3] measured sole positions at z = 0
+    meas_rot: torch.Tensor  # [B, nc, 3, 3] their yaw-only rotations
+    base_rot: torch.Tensor  # [B, 3, 3] estimated base attitude
+    com: torch.Tensor  # [B, 3] estimated CoM
+    dcom: torch.Tensor  # [B, 3] estimated CoM velocity
+    cp_xy: torch.Tensor  # [B, 2] instantaneous capture point (LIPM)
+    pos_cp: torch.Tensor  # [B, nc, 3] each foot's current phase position
 
 
 class TickInput(NamedTuple):
@@ -213,9 +238,6 @@ class WalkingController:
     """Holds the static pieces: configs, robot model, MANN weights, device."""
 
     def __init__(self, cfg: WalkingConfig, model: kin.RobotModel, weights: MANNWeights, *, device="cuda"):
-        if cfg.rigid is not None:
-            raise NotImplementedError(
-                "the rigid-body plant (cmw_tpu/sim/rigid_body.py) is not ported: run with cfg.rigid = None")
         self.cfg = cfg
         self.model = model
         self.weights = weights
@@ -271,9 +293,26 @@ class WalkingController:
         self._polished[key] = (q[0], base_rot[0])
         return self._polished[key]
 
+    def _settled_plant(self, q0, base_rot0, base_pos) -> RB.RigidBodyState:
+        """The rigid plant spawned at the start pose, pre-sunk by the static
+        penetration mg / (8 kp) so that the springs carry the weight from the
+        start, settled for rigid_settle_s while the servos hold q0, its
+        friction anchors then reset (cmw_tpu/runtime/loop.py:397-420). The B
+        items start identical, so the settle runs on the first and the
+        result is shared."""
+        cfg, model = self.cfg, self.model
+        B = q0.shape[0]
+        sink = self.mass * 9.80665 / (8.0 * cfg.rigid.contact_kp)
+        spawn = base_pos[:1] - constant_like((0.0, 0.0, sink), base_pos)
+        rb = RB.initial_state(model, q0[:1], base_rot0[:1], spawn, cfg.rigid, device=q0.device, dtype=q0.dtype)
+        rb = RB.settle(cfg.rigid, model, rb, q0[:1], cfg.wbc_dt, int(round(cfg.rigid_settle_s / cfg.wbc_dt)))
+        rb = RB.reset_anchors(model, rb)
+        return RB.RigidBodyState(*(a.expand((B,) + a.shape[1:]) for a in rb[:-1]),
+                                 RB.RigidDynParams(*(a.expand(B) for a in rb.params)))
+
     def initial_state(self, B: int, q0=None, base_rot0=None, dtype=torch.float32) -> LoopState:
         """B identical items at the start of an episode
-        (cmw_tpu/runtime/loop.py:335-505, kinematic plant). Default start: the
+        (cmw_tpu/runtime/loop.py:335-505). Default start: the
         polished walk-ready crouch; pass q0 [nj] (and base_rot0 [3, 3]) to
         start elsewhere. The controller's device holds every tensor."""
         cfg, model, dev = self.cfg, self.model, self.device
@@ -321,8 +360,14 @@ class WalkingController:
         # training distribution, even when the robot starts deeper
         q_ready, _ = self.polished_initial_pose(dtype, drop=0.0)
         gen0 = G.initial_state(cfg.gen, model, q_ready.expand(B, nj))
-        # (the rigid plant's spawn and settling, loop.py:397-425, not ported)
         ff0 = fixed_foot.detect(plan, zeros, cfg.odom.initial_fixed_index)
+        rb0 = None
+        if cfg.rigid is not None:
+            rb0 = self._settled_plant(q0, base_rot0, base_pos)
+            # bootstrap the integrated state from the measured (odometry) CoM
+            # of the settled plant (WholeBodyQPBlock.cpp:1037-1080)
+            eR, ep = legged_odom.base_pose(model, legged_odom.OdometryState(ff0.index, ff0.rot, ff0.pos), rb0.q)
+            com0 = kin.com(model, *kin.fk(model, rb0.q, eR, ep))
         fixed_z = lambda x: torch.cat([x[:, 0:2], zeros[:, None]], dim=-1)  # noqa: E731
         return LoopState(
             t=zeros,
@@ -347,7 +392,7 @@ class WalkingController:
             mpc_cost=zeros,
             mpc_prim=zeros,
             plant=P.initial_state(cfg.plant, q0),
-            rb=None,
+            rb=rb0,
             com_mann=torch.cat([com0[:, 0:2], com_z_ref[:, None]], dim=-1),
             ang_mom_mann=zeros3,
             hold=zeros,
@@ -380,14 +425,21 @@ class WalkingController:
                                                          dmax)
             motion = torch.where(s.dyn.joypad_slew[:, None] > 0, motion, inp.joypad[:, 0:2])
             joypad = torch.cat([motion, inp.joypad[:, 2:4]], dim=-1)
+            # the slew state and stand mode key off the pre-governor command
+            joypad_pre_gov = joypad
             moving = torch.linalg.vector_norm(joypad[:, 0:2], dim=-1) > cfg.stand_threshold
-            # (0b, the rigid plant's gait-hold and speed governors, loop.py:533-721: not ported)
-            hold = torch.zeros_like(s.hold)
+            hold, hold_time = torch.zeros_like(s.hold), s.hold_time
+            if cfg.rigid is not None:
+                # 0b. the rigid plant's measurements, gait hold and speed governors
+                rig = self._rigid_measurements(s)
+                hold, hold_time = self._gait_hold(s, rig)
+                joypad = self._speed_governors(s, rig, joypad)
 
             # 1. joystick -> desired base trajectory
             desired = build_desired_trajectory(joypad[:, 0:2], joypad[:, 2:4], cfg.input_builder)
             gen_state, stored = s.gen_state, s.mann
-            # (1b, the rigid plant's generator re-sync, loop.py:734-755: not ported)
+            if cfg.rigid is not None and cfg.gen_resync:
+                gen_state, stored = self._resync_generator(s, gen_state, stored)
 
             # the adapters' input knots are slow_down_factor * gen dt apart in real time
             slow = cfg.gen.slow_down_factor
@@ -451,8 +503,15 @@ class WalkingController:
                 still = ~moving[:, None, None]
                 com_ref = torch.where(still, com_hold[:, None, :], com_ref)
                 L_ref = torch.where(still, 0.0, L_ref)
-            # (the rigid plant's hold freeze, contact reconciliation, early
-            # activation and capture step, loop.py:886-993: not ported)
+            if cfg.rigid is not None:
+                # the gait hold freezes the generator and the plan, so that the
+                # swing, the landing and the MPC's force schedule retime together
+                held = hold > 0
+                gen_next = _where(held, gen_state, gen_next)
+                plan = _where(held, rig.prev_plan, plan)
+                if cfg.reconcile_contacts:
+                    plan = self._reconcile_contacts(s, rig, plan, hold)
+                plan = self._capture_step(s, rig, plan)
 
             # 6. solve from the integrated state, with the measured wrench
             # deadbanded as the WBC does (WholeBodyQPBlock.cpp:1018-1021)
@@ -482,9 +541,171 @@ class WalkingController:
                 warm=warm, plan=plan, forces0=sol.forces[:, 0], corner0=corner_k[:, 0],
                 active0=stage.active[..., 0], zmp_des=zmp_des, gen_state=gen_next, q_reg=q_reg,
                 chest_yaw=chest_yaw, mpc_cost=sol.cost, mpc_prim=sol.prim_res, ref_off=ref_off,
-                com_mann=com_ref[:, 0], ang_mom_mann=L_ref[:, 0], hold=hold, hold_time=s.hold_time,
-                joypad_lp=joypad, mann=stored,
+                com_mann=com_ref[:, 0], ang_mom_mann=L_ref[:, 0], hold=hold, hold_time=hold_time,
+                joypad_lp=joypad_pre_gov, mann=stored,
             )
+
+    # -- the rigid plant's MPC-stage branches -----------------------------------
+
+    def _rigid_measurements(self, s: LoopState) -> RigidMeasurements:
+        """Step 0b's measurements: sole poses for the landing reconciliation
+        and the estimated centroidal state for the capture gates, in the
+        frame of the persistent odometry anchor (loop.py:536-599)."""
+        cfg, model, mpc = self.cfg, self.model, self.cfg.mpc
+        rb = s.rb
+        prev_plan = C.snap_to_grid(s.plan, mpc.dt)
+        feet_prev = swing_foot.evaluate(prev_plan, s.t, cfg.swing)
+        load = rb.corner_forces[..., 2].sum(-1) / (self.mass * 9.80665)
+        if cfg.perfect_state:
+            bR, bp = rb.base_rot, rb.base_pos
+        else:
+            bR, bp = legged_odom.base_pose_fused(model, s.odo, rb.q, rb.base_rot)
+        lR, lp = kin.fk(model, rb.q, bR, bp)
+        fR, fp = kin.frame_poses(model, lR, lp)
+        soles = [model.frame_index(f) for f in ("l_sole", "r_sole")]
+        meas_pos = torch.stack([fp[:, i] for i in soles], dim=1)
+        meas_pos = torch.cat([meas_pos[..., 0:2], torch.zeros_like(meas_pos[..., 2:3])], dim=-1)
+        meas_rot = lie.rotz(torch.stack([lie.yaw_of(fR[:, i]) for i in soles], dim=1))
+        com_r = kin.com(model, lR, lp)
+        if cfg.perfect_state:
+            nu_r = rb.nu[:, 0:6]
+        else:
+            nu_r = legged_odom.base_twist(model, s.odo, rb.q, rb.nu[:, 6:], bR, bp)
+        h_r = kin.centroidal_momentum(model, lR, lp, torch.cat([nu_r, rb.nu[:, 6:]], dim=-1))
+        dcom_r = h_r[:, 0:3] / self.mass
+        cp_xy = com_r[:, 0:2] + dcom_r[:, 0:2] * torch.sqrt(torch.clamp_min(com_r[:, 2], 0.3) / 9.80665)[:, None]
+        idxp, _ = C.active_phase(prev_plan, s.t)
+        _, _, pos_cp, _, _ = C.gather_phase(prev_plan, idxp)
+        return RigidMeasurements(prev_plan, feet_prev, load, meas_pos, meas_rot, bR, com_r, dcom_r, cp_xy, pos_cp)
+
+    def _gait_hold(self, s: LoopState, m: RigidMeasurements):
+        """The gait-hold decision (loop.py:572-673): pause the clock before a
+        lift-off while the transfer lags (load still on the lifting foot, or
+        the capture point outside the hull of the other stance foot and the
+        landing), unless the capture point escapes forward past the other
+        foot's toe; the overspeed brake; never while a foot is in late swing.
+        Returns (hold [B], hold_time [B])."""
+        mpc, d = self.cfg.mpc, s.dyn
+        dtype = s.t.dtype
+        idxp, in_cp = C.active_phase(m.prev_plan, s.t)
+        _, deact_p, _, _, _ = C.gather_phase(m.prev_plan, idxp)
+        about_to_lift = (in_cp > 0.5) & (deact_p <= s.t[:, None] + mpc.dt + 1e-6)
+        early_swing = (m.feet_prev.in_contact < 0.5) & (m.feet_prev.progress < d.gait_hold_window[:, None])
+        idxn, has_n = C.next_phase(m.prev_plan, s.t)
+        _, _, pos_n, _, _ = C.gather_phase(m.prev_plan, idxn)
+        land_xy = torch.where(has_n[..., None] > 0, pos_n[..., 0:2], m.pos_cp[..., 0:2])
+        stance_xy = m.pos_cp.flip(1)[..., 0:2]  # the OTHER foot's stance pose
+        margin = torch.stack([d.capture_margin_x, d.capture_margin_y], dim=-1)[:, None, :]
+        lo = torch.minimum(stance_xy, land_xy) - margin
+        hi = torch.maximum(stance_xy, land_xy) + margin
+        cp = m.cp_xy[:, None, :]
+        capture_ok = ((cp >= lo) & (cp <= hi)).all(dim=-1)
+        # forward capture escape: the remaining stance foot's toe along travel
+        spd_m = torch.linalg.vector_norm(m.dcom[:, 0:2], dim=-1)
+        vdir_m = m.dcom[:, 0:2] / torch.clamp_min(spd_m, 1e-6)[:, None]
+        toe_other = (m.pos_cp.flip(1)[..., 0:2] @ vdir_m[:, :, None])[..., 0] + 0.08
+        cp_along = (m.cp_xy * vdir_m).sum(dim=-1)
+        fwd_escape = ((cp_along[:, None] > toe_other + d.rush_margin[:, None]) & (spd_m > 0.05)[:, None]
+                      & (d.fwd_release > 0)[:, None])
+        lagging = (about_to_lift | early_swing) & ((m.load > d.gait_hold_thresh[:, None]) | ~capture_ok) & ~fwd_escape
+        # overspeed double-support brake, while a loaded toe still covers the capture point
+        toe_al = torch.where(m.load > 0.05, (m.pos_cp[..., 0:2] @ vdir_m[:, :, None])[..., 0] + 0.08,
+                             -1e9).amax(dim=-1)
+        brake = (d.brake_speed > 0) & (spd_m > d.brake_speed) & (cp_along < toe_al + d.brake_margin)
+        lagging = lagging | (about_to_lift & brake[:, None])
+        late_swing = (m.feet_prev.in_contact < 0.5) & (m.feet_prev.progress >= d.gait_hold_window[:, None])
+        want = lagging.any(dim=-1) & ~late_swing.any(dim=-1) & (d.gait_hold_window > 0)
+        hold = (want & (s.hold_time < d.gait_hold_max_s)).to(dtype)
+        hold_time = torch.where(want, s.hold_time + mpc.dt, 0.0)
+        return hold, hold_time
+
+    def _speed_governors(self, s: LoopState, m: RigidMeasurements, joypad):
+        """The capture-point and CoM-lag speed governors (loop.py:675-721):
+        scale the commanded motion down when the capture point runs past the
+        loaded toe (+ cp_margin), or the CoM lags the loaded support along
+        the motion direction (past lag_band)."""
+        d = s.dyn
+        sup_w = (m.load > 0.05).to(s.t.dtype)
+        toe_x = torch.where(sup_w > 0, m.pos_cp[..., 0] + 0.08, -1e9).amax(dim=-1)
+        overshoot = torch.clamp_min(m.cp_xy[:, 0] - (toe_x + d.cp_margin), 0.0)
+        gov = torch.clamp(1.0 - d.cp_gov * overshoot, 0.0, 1.0)
+        gov = torch.where(d.cp_gov > 0, gov, 1.0)
+        yaw_b = lie.yaw_of(m.base_rot)
+        mnorm = torch.linalg.vector_norm(joypad[:, 0:2], dim=-1)
+        mdir_b = joypad[:, 0:2] / torch.clamp_min(mnorm, 1e-6)[:, None]
+        cy, sy = torch.cos(yaw_b), torch.sin(yaw_b)
+        mdir_w = torch.stack([cy * mdir_b[:, 0] - sy * mdir_b[:, 1], sy * mdir_b[:, 0] + cy * mdir_b[:, 1]], dim=-1)
+        sup_c = (sup_w[..., None] * m.pos_cp[..., 0:2]).sum(dim=1) / torch.clamp_min(sup_w.sum(dim=-1), 1.0)[:, None]
+        lag = ((sup_c - m.com[:, 0:2]) * mdir_w).sum(dim=-1)
+        gov2 = torch.clamp(1.0 - d.lag_gov * torch.clamp_min(lag - d.lag_band, 0.0), 0.0, 1.0)
+        gov2 = torch.where((d.lag_gov > 0) & (mnorm > 1e-3), gov2, 1.0)
+        return torch.cat([joypad[:, 0:2] * (gov * gov2)[:, None], joypad[:, 2:4]], dim=-1)
+
+    def _resync_generator(self, s: LoopState, gen_state: G.GeneratorState, stored: StoredMann):
+        """Generator-plan re-sync (loop.py:728-755): translate the generator's
+        virtual world, and the stored rollout in it, onto the reconciled
+        plan's stance soles."""
+        plan0 = C.snap_to_grid(s.plan, self.cfg.mpc.dt)
+        idx0, in0 = C.active_phase(plan0, s.t)
+        _, _, pos0, _, _ = C.gather_phase(plan0, idx0)
+        w0 = ((in0 > 0.5) & (gen_state.contact > 0.5)).to(s.t.dtype)
+        dxy = ((pos0[..., 0:2] - gen_state.foot_pose_xy_yaw[..., 0:2]) * w0[..., None]).sum(dim=1) / torch.clamp_min(
+            w0.sum(dim=-1), 1.0)[:, None]
+
+        def shift(a, d):  # add d to a's first two components
+            return torch.cat([a[..., 0:2] + d, a[..., 2:]], dim=-1)
+
+        gen_state = gen_state._replace(base_xy=gen_state.base_xy + dxy, hist_xy=gen_state.hist_xy + dxy[:, None],
+                                       foot_pose_xy_yaw=shift(gen_state.foot_pose_xy_yaw, dxy[:, None]))
+        stored = stored._replace(com=shift(stored.com, dxy[:, None]),
+                                 plan=stored.plan._replace(pos=shift(stored.plan.pos, dxy[:, None, None])))
+        return gen_state, stored
+
+    def _reconcile_contacts(self, s: LoopState, m: RigidMeasurements, plan: C.ContactPlan, hold):
+        """Contact reconciliation and early activation (loop.py:893-940): in
+        the first two periods of a contact phase (the clock not held), write
+        the foot's measured sole pose into it; a swinging foot that already
+        carries load, its activation within td_lookahead, becomes active now."""
+        mpc, d = self.cfg.mpc, s.dyn
+        phases = torch.arange(plan.act.shape[-1], device=s.t.device)
+        idx_c, in_c = C.active_phase(plan, s.t)
+        act_c, _, _, _, _ = C.gather_phase(plan, idx_c)
+        upd = (in_c > 0.5) & (act_c > s.t[:, None] - 2.0 * mpc.dt - 1e-6) & (hold < 0.5)[:, None]
+        sel = (upd[..., None] & (phases == idx_c[..., None]))[..., None]
+        plan = plan._replace(pos=torch.where(sel, m.meas_pos[:, :, None, :], plan.pos),
+                             rot=torch.where(sel[..., None], m.meas_rot[:, :, None], plan.rot))
+        idxn, has_n = C.next_phase(plan, s.t)
+        act_n, _, _, _, _ = C.gather_phase(plan, idxn)
+        _, in_c = C.active_phase(plan, s.t)
+        early_act = ((in_c < 0.5) & (has_n > 0.5) & (m.load > d.td_load_thresh[:, None])
+                     & (act_n <= s.t[:, None] + d.td_lookahead[:, None]) & (d.td_load_thresh > 0)[:, None])
+        return plan._replace(act=torch.where(early_act[..., None] & (phases == idxn[..., None]), s.t[:, None, None],
+                                             plan.act))
+
+    def _capture_step(self, s: LoopState, m: RigidMeasurements, plan: C.ContactPlan):
+        """Capture-step extension with the geometric reach cap (loop.py:
+        942-993): move a swinging foot's next landing forward, along the
+        measured CoM velocity, to the capture point + step_ext_margin (at
+        most step_ext_max, and within step_reach_len of the CoM)."""
+        d = s.dyn
+        idxn, has_n = C.next_phase(plan, s.t)
+        _, _, pos_n, _, _ = C.gather_phase(plan, idxn)
+        mv = torch.linalg.vector_norm(m.dcom[:, 0:2], dim=-1)
+        dirx = m.dcom[:, 0:2] / torch.clamp_min(mv, 1e-6)[:, None]
+        _, in_c = C.active_phase(plan, s.t)
+        lead = torch.einsum("bx,bix->bi", dirx, m.cp_xy[:, None, :] - pos_n[..., 0:2])
+        ext = torch.minimum(torch.clamp_min(lead + d.step_ext_margin[:, None], 0.0), d.step_ext_max[:, None])
+        off0 = torch.einsum("bx,bix->bi", dirx, pos_n[..., 0:2] - m.com[:, None, 0:2])
+        d_max = torch.sqrt(torch.clamp_min(d.step_reach_len ** 2 - m.com[:, 2] ** 2, 0.0))
+        ext_cap = torch.clamp_min(d_max[:, None] - off0, 0.0)
+        ext = torch.where(d.step_reach_len[:, None] > 0, torch.minimum(ext, ext_cap), ext)
+        do_ext = ((in_c < 0.5) & (has_n > 0.5) & (lead > 0.0) & (d.step_ext_max > 0)[:, None]
+                  & (mv > 0.1)[:, None])
+        new_xy = pos_n[..., 0:2] + dirx[:, None, :] * ext[..., None]
+        phases = torch.arange(plan.act.shape[-1], device=s.t.device)
+        sel = (do_ext[..., None] & (phases == idxn[..., None]))[..., None]
+        new_pos = torch.cat([new_xy, torch.zeros_like(new_xy[..., :1])], dim=-1)[:, :, None, :]
+        return plan._replace(pos=torch.where(sel, new_pos, plan.pos))
 
     # -- WBC stage (every tick) -------------------------------------------------
 
@@ -492,20 +713,35 @@ class WalkingController:
         cfg, model = self.cfg, self.model
         dt = cfg.wbc_dt
         pcfg = cfg.plant
-        with record_function("wbc.other"):
-            # (the rigid plant's dynamics step, loop.py:1063-1073: not ported)
-            # kinematic plant: the actual joints track the PositionDirect
-            # stream (servo lag), the encoders read them (with noise)
-            ps = P.servo_step(pcfg, s.plant, s.q, dt)
-            q_meas, _, ps = P.read_joints(pcfg, ps)
+        rigid = cfg.rigid is not None
+        if rigid:
+            with record_function("wbc.plant"):
+                # the rigid plant: the servos track the PositionDirect stream
+                # through the Lagrangian dynamics, the push is a real force on
+                # the base, the encoders read the physical joints
+                rbs = RB.dynamics_step(cfg.rigid, model, s.rb, s.q, dt, ext_force_base=inp.ext_force * self.mass)
+            q_meas, ps = rbs.q, s.plant
+        else:
+            with record_function("wbc.other"):
+                # kinematic plant: the actual joints track the PositionDirect
+                # stream (servo lag), the encoders read them (with noise)
+                rbs = s.rb
+                ps = P.servo_step(pcfg, s.plant, s.q, dt)
+                q_meas, _, ps = P.read_joints(pcfg, ps)
 
         with record_function("wbc.estimation"):
             # fixed foot + legged odometry on the measured joints
-            # (the rigid plant's persistent anchor, loop.py:1087-1120, and
-            # IMU fusion, :1123-1128: not ported)
             ff = fixed_foot.detect(s.plan, s.t, cfg.odom.initial_fixed_index)
-            odo = legged_odom.OdometryState(ff.index, ff.rot, ff.pos)
-            base_est_R, base_est_p = legged_odom.base_pose(model, odo, q_meas)
+            if rigid:
+                odo = self._odometry_anchor(s, ff, q_meas, rbs.base_rot)
+                if cfg.perfect_state:
+                    base_est_R, base_est_p = rbs.base_rot, rbs.base_pos
+                else:
+                    # the base attitude from the (ideal) base IMU
+                    base_est_R, base_est_p = legged_odom.base_pose_fused(model, odo, q_meas, rbs.base_rot)
+            else:
+                odo = legged_odom.OdometryState(ff.index, ff.rot, ff.pos)
+                base_est_R, base_est_p = legged_odom.base_pose(model, odo, q_meas)
 
         with record_function("wbc.other"):
             # measured external wrench, deadbanded below 0.7 N
@@ -516,9 +752,32 @@ class WalkingController:
             # measured CoM: FK of the estimated robot (WholeBodyQPBlock.cpp:950-991)
             lR, lp = kin.fk(model, q_meas, base_est_R, base_est_p)
             com_meas = kin.com(model, lR, lp)
-            # (the rigid plant's measured-state feedback, loop.py:1152-1177: not ported)
-            # measured ZMP from the wrench sensors (evaluateZMP, :737-803)
-            if pcfg.wrench_noise > 0.0:
+            if rigid:
+                # measured-state feedback into the integrator, lateral only
+                # (loop.py:1148-1177): the height tracks the plan stiffly
+                qd_meas = rbs.nu[:, 6:]  # ideal encoders
+                if cfg.perfect_state:
+                    nu_est = rbs.nu[:, 0:6]
+                else:
+                    nu_est = legged_odom.base_twist(model, odo, q_meas, qd_meas, base_est_R, base_est_p)
+                h = kin.centroidal_momentum(model, lR, lp, torch.cat([nu_est, qd_meas], dim=-1))
+                meas9 = pack_state(com_meas, h[:, 0:3] / self.mass, h[:, 3:6] / self.mass)
+                g, gl = s.dyn.state_fb_gain, s.dyn.state_fb_l
+                zero = torch.zeros_like(g)
+                fb_rate = torch.stack([g, g, zero, g, g, zero, gl, gl, gl], dim=-1)
+                x9 = x9 + dt * fb_rate * (meas9 - x9)
+                com_des3, dcom_des3 = x9[:, 0:3], x9[:, 3:6]
+                # measured ZMP: the plant's contact forces at the corners of
+                # the odometry-frame kinematics (WholeBodyQPBlock.cpp:745-777)
+                fRm, fpm = kin.frame_poses(model, lR, lp)
+                soles = [model.frame_index(f) for f in ("l_sole", "r_sole")]
+                cl = RB.corners(q_meas)
+                corner_meas = torch.stack(
+                    [fpm[:, f, None, :] + torch.einsum("bac,jc->bja", fRm[:, f], cl[i]) for i, f in enumerate(soles)],
+                    dim=1)
+                zmp_meas = desired_zmp_from_corners(rbs.corner_forces, corner_meas, centers=corner_meas.mean(dim=-2))
+            elif pcfg.wrench_noise > 0.0:
+                # measured ZMP from the wrench sensors (evaluateZMP, :737-803)
                 zmp_meas, ps = P.read_zmp(pcfg, ps, s.forces0, s.corner0, s.corner0.mean(dim=-2))
             else:
                 zmp_meas = s.zmp_des
@@ -526,17 +785,37 @@ class WalkingController:
                                     zmp_meas[:, 0:2], lie.yaw_of(s.base_rot), cfg.gains)
             com_xy_int = s.com_xy_int + dt * v_cmd
             feet = swing_foot.evaluate(s.plan, s.t, cfg.swing)
-            # (the rigid plant's touchdown and lift gates, gait rush and
-            # crouch, loop.py:1213-1327: not ported)
+            root_z = com_des3[:, 2] + s.root_z_off
+            zero = torch.zeros_like(s.t)
+            rush = zero
+            if rigid:
+                # anti-windup: the integrated CoM command stays within
+                # com_int_band of the measured CoM (0 disables)
+                band = s.dyn.com_int_band[:, None]
+                clipped = torch.minimum(torch.maximum(com_xy_int, com_meas[:, 0:2] - band), com_meas[:, 0:2] + band)
+                com_xy_int = torch.where(band > 0, clipped, com_xy_int)
+                sole_meas = torch.stack([fpm[:, f] for f in soles], dim=1)
+                sole_meas = torch.cat([sole_meas[..., 0:2], torch.clamp_min(sole_meas[..., 2:3], 0.0)], dim=-1)
+                feet = self._touchdown_gates(s, feet, rbs, sole_meas)
+                rush, crouch, lean, dirv = self._capture_schedules(s, feet, com_meas, meas9)
+                root_z = root_z - crouch
             # chest set-point: world-upright at the regularisation posture's
             # chest yaw (WholeBodyQPBlock.cpp:1219-1228)
             rfR, _ = kin.frame_poses(model, *kin.fk(model, s.q_reg, base_est_R, base_est_p))
             yaw_frame = "chest" if "chest" in model.frame_names else cfg.ik.chest_frame
             chest_rot_target = lie.rotz(lie.yaw_of(rfR[:, model.frame_index(yaw_frame)]))
+            if rigid:
+                # capture-scheduled forward lean about (-dy, dx, 0), toward travel
+                lean_axis = torch.stack([-dirv[:, 1], dirv[:, 0], zero], dim=-1)
+                chest_rot_target = lie.so3_exp(lean[:, None] * lean_axis) @ chest_rot_target
             targets = IKTargets(
                 foot_rot=feet.rot, foot_pos=feet.pos, foot_lin_vel=feet.lin_vel, foot_ang_vel=feet.ang_vel,
-                com_xy=com_xy_int, dcom_xy=v_cmd, root_z=com_des3[:, 2] + s.root_z_off, droot_z=dcom_des3[:, 2],
+                com_xy=com_xy_int, dcom_xy=v_cmd, root_z=root_z, droot_z=dcom_des3[:, 2],
                 chest_rot=chest_rot_target, q_reg=s.q_reg,
+                # the rigid-only rows: the angular-momentum task on the MPC's
+                # planned L and the chest roll/pitch weight
+                ang_mom=x9[:, 6:9] if rigid else None, ang_mom_w=s.dyn.ang_mom_w if rigid else None,
+                chest_w_rp=s.dyn.chest_w_rp if rigid else None,
             )
             if cfg.ik_joint_limits and model.q_lim is not None:
                 # joint-limit qdot box: approach the position limits
@@ -556,15 +835,22 @@ class WalkingController:
         with record_function("wbc.other"):
             base_rot, base_pos = lie.integrate_mixed_velocity(s.base_rot, s.base_pos, nu[:, 0:3], nu[:, 3:6], dt)
             q = s.q + dt * nu[:, 6:]
-            s2 = s._replace(
-                # gait time pauses while s.hold is set (rigid plant only)
-                t=s.t + dt * (1.0 - s.hold),
-                tick=s.tick + 1,
-                x9=x9, com_xy_int=com_xy_int, base_rot=base_rot, base_pos=base_pos, q=q, plant=ps, odo=odo,
-            )
+            # gait time pauses while s.hold is set and runs up to 3x under the rush
+            t = s.t + dt * (1.0 - s.hold) * (1.0 + rush) if rigid else s.t + dt * (1.0 - s.hold)
+            s2 = s._replace(t=t, tick=s.tick + 1, x9=x9, com_xy_int=com_xy_int, base_rot=base_rot, base_pos=base_pos,
+                            q=q, plant=ps, rb=rbs, odo=odo)
             stage_now = C.mpc_stage_params(s.plan, s.t, 1, cfg.mpc.dt, cfg.mpc.n_slots)
             nc = feet.in_contact.shape[-1]
-            zero = torch.zeros_like(s.t)
+            if rigid:
+                act = dict(
+                    base_act_pos=rbs.base_pos, base_act_up=rbs.base_rot[:, 2, 2], base_act_lean=rbs.base_rot[:, 2, 0:2],
+                    fz_act=rbs.corner_forces[..., 2].sum(-1), ft_act=rbs.corner_forces[..., 0:2].sum(-2),
+                    com_act=kin.com(model, *kin.fk(model, rbs.q, rbs.base_rot, rbs.base_pos)), q_act=rbs.q)
+            else:
+                # the kinematic plant has no contact forces (the rigid plant's initial state's zeros in JAX)
+                act = dict(base_act_pos=base_pos, base_act_up=base_rot[:, 2, 2], base_act_lean=base_rot[:, 2, 0:2],
+                           fz_act=zero[:, None].expand(-1, nc), ft_act=zero[:, None, None].expand(-1, nc, 2),
+                           com_act=com_meas, q_act=q)
             tel = Telemetry(
                 com_mpc=com_des3, dcom_mpc=dcom_des3, ang_mom_mpc=x9[:, 6:9], com_meas=com_meas,
                 com_ik_target=torch.cat([com_xy_int, com_des3[:, 2:3]], dim=-1), zmp_des=s.zmp_des,
@@ -572,13 +858,85 @@ class WalkingController:
                 base_est_pos=base_est_p, fixed_foot_idx=ff.index.to(s.t.dtype), mpc_cost=s.mpc_cost,
                 mpc_prim=s.mpc_prim, adjusted_step=stage_now.slot_pos_nom, zmp_meas=zmp_meas, vcom_zmp=v_cmd,
                 dq_cmd=nu[:, 6:], joypad=inp.joypad, q_reg=s.q_reg, com_mann=s.com_mann,
-                ang_mom_mann=s.ang_mom_mann, gait_hold=s.hold, gait_rush=zero,
-                base_act_pos=base_pos, base_act_up=base_rot[:, 2, 2], base_act_lean=base_rot[:, 2, 0:2],
-                # the kinematic plant has no contact forces (the rigid plant's initial state's zeros in JAX)
-                fz_act=zero[:, None].expand(-1, nc), ft_act=zero[:, None, None].expand(-1, nc, 2),
-                com_act=com_meas, q_act=q,
+                ang_mom_mann=s.ang_mom_mann, gait_hold=s.hold, gait_rush=rush, **act,
             )
             return s2, tel
+
+    # -- the rigid plant's WBC-stage branches -----------------------------------
+
+    def _odometry_anchor(self, s: LoopState, ff, q_meas, imu_R) -> legged_odom.OdometryState:
+        """The persistent odometry anchor (loop.py:1087-1120): on a fixed-frame
+        switch the new sole is pinned at its measured pose in the current
+        estimate frame (z = 0, yaw only); every tick the anchor then moves
+        toward the plan's pose by odom_blend (1 = the reference's instant plan
+        anchoring)."""
+        model = self.model
+        switched = ff.index != s.odo.fixed_index
+        lR0, lp0 = kin.fk(model, q_meas, *legged_odom.base_pose_fused(model, s.odo, q_meas, imu_R))
+        fR0, fp0 = kin.frame_poses(model, lR0, lp0)
+        li, ri = model.frame_index("l_sole"), model.frame_index("r_sole")
+        left = ff.index == 0
+        new_p = torch.where(left[:, None], fp0[:, li], fp0[:, ri])
+        new_p = torch.cat([new_p[:, 0:2], torch.zeros_like(new_p[:, 2:3])], dim=-1)
+        new_yaw = torch.where(left, lie.yaw_of(fR0[:, li]), lie.yaw_of(fR0[:, ri]))
+        cont_pos = torch.where(switched[:, None], new_p, s.odo.fixed_pos)
+        cont_yaw = torch.where(switched, new_yaw, lie.yaw_of(s.odo.fixed_rot))
+        a = s.dyn.odom_blend
+        dyaw = lie.yaw_of(ff.rot) - cont_yaw
+        dyaw = torch.atan2(torch.sin(dyaw), torch.cos(dyaw))
+        return legged_odom.OdometryState(ff.index, lie.rotz(cont_yaw + a * dyaw),
+                                         cont_pos + a[:, None] * (ff.pos - cont_pos))
+
+    def _touchdown_gates(self, s: LoopState, feet: swing_foot.FootState, rbs, sole_meas) -> swing_foot.FootState:
+        """The early-touchdown gate (loop.py:1226-1254: a late-swing foot that
+        already measures load holds its measured sole pose) and, with
+        lift_gate_window > 0, the load-gated swing lift (:1256-1273: an
+        early-swing foot holds its sole pose until the plant's contact forces
+        say it is unloaded). sole_meas [B, nc, 3]: measured soles, z >= 0."""
+        cfg, d = self.cfg, s.dyn
+        load = rbs.corner_forces[..., 2].sum(-1) / (self.mass * 9.80665)
+        early_td = ((feet.in_contact < 0.5) & (feet.progress > d.gait_hold_window[:, None])
+                    & (load > d.td_load_thresh[:, None]) & (d.td_load_thresh > 0)[:, None])
+        g = early_td[..., None]
+        feet = feet._replace(pos=torch.where(g, sole_meas, feet.pos), lin_vel=torch.where(g, 0.0, feet.lin_vel),
+                             ang_vel=torch.where(g, 0.0, feet.ang_vel))
+        if cfg.lift_gate_window > 0.0:
+            load_gate = torch.sigmoid((cfg.lift_load_thresh - load) * 30.0)
+            early = (feet.in_contact < 0.5) & (feet.progress < cfg.lift_gate_window)
+            gate = torch.where(early, load_gate, 1.0)[..., None]
+            feet = feet._replace(pos=gate * feet.pos + (1.0 - gate) * sole_meas, lin_vel=gate * feet.lin_vel,
+                                 ang_vel=gate * feet.ang_vel)
+        return feet
+
+    def _capture_schedules(self, s: LoopState, feet: swing_foot.FootState, com_meas, meas9):
+        """What the measured capture point's overshoot past the loaded toe
+        schedules (loop.py:1275-1327, 1353-1374): the gait rush (clock
+        acceleration, 0..2), the crouch (root-z drop, up to crouch_max) and
+        the chest lean (rad, up to 0.4), with the travel direction.
+        Returns (rush, crouch, lean [B], dirv [B, 2])."""
+        d = s.dyn
+        dcom2 = meas9[:, 3:5]
+        sp = torch.linalg.vector_norm(dcom2, dim=-1)
+        dirv = dcom2 / torch.clamp_min(sp, 1e-6)[:, None]
+        cp2 = com_meas[:, 0:2] + dcom2 * torch.sqrt(torch.clamp_min(com_meas[:, 2], 0.3) / 9.80665)[:, None]
+        along = (feet.pos[..., 0:2] @ dirv[:, :, None])[..., 0]
+        toe = torch.where(feet.in_contact > 0.5, along + 0.08, -1e9).amax(dim=-1)
+        cp_along = (cp2 * dirv).sum(dim=-1)
+        cp_over_toe = cp_along - toe  # margin-free, for the crouch and the lean
+        # the rush keeps the grouping dot - (toe + margin): reassociated it is
+        # not bit-identical in f32, and the rigid loop turns an ulp into a
+        # trajectory shift
+        over = cp_along - (toe + d.rush_margin)
+        any_swing = (feet.in_contact < 0.5).any(dim=-1)
+        any_contact = (feet.in_contact > 0.5).any(dim=-1)
+        rush = torch.clamp(d.rush_gain * torch.clamp_min(over, 0.0), 0.0, 2.0)
+        rush = torch.where((any_swing | (d.rush_ds > 0)) & (d.rush_gain > 0) & (sp > 0.05), rush, 0.0)
+        # gated on contact: with no foot down `toe` is the -1e9 sentinel
+        gate = (sp > 0.05) & any_contact
+        over_toe = torch.clamp_min(cp_over_toe, 0.0)
+        crouch = torch.where(gate, torch.minimum(torch.clamp_min(d.crouch_gain * over_toe, 0.0), d.crouch_max), 0.0)
+        lean = torch.where(gate, torch.clamp(d.chest_lean_gain * over_toe, 0.0, 0.4), 0.0)
+        return rush, crouch, lean, dirv
 
     # -- the step + episode ------------------------------------------------------
 

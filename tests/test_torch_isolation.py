@@ -1,6 +1,6 @@
 """The port runs without JAX: importing `cmw_tpu_torch` (and `chip_smoke.py`),
-running a solve, a MANN rollout and a few ticks of the walking controller
-loads neither `jax` nor the JAX package `cmw_tpu`."""
+running a solve, a MANN rollout, a few ticks of the walking controller and
+a step of the rigid-body plant loads neither `jax` nor the JAX package `cmw_tpu`."""
 
 import os
 import subprocess
@@ -52,6 +52,11 @@ ctl = loop.WalkingController(config.ergocub_gazebo_v1(mpc=ergocub_mpc_config(hor
                              device="cpu")
 s, tel = ctl.run_episode(ctl.initial_state(1), loop.constant_inputs(3, (0.8, 0.0, 1.0, 0.0), device="cpu"))
 assert tel.q.shape == (1, 3, 26) and bool(torch.isfinite(tel.com_mpc).all()) and int(s.tick[0]) == 3
+from cmw_tpu_torch.sim import rigid_body
+
+rb = rigid_body.initial_state(model, s.q, s.base_rot, s.base_pos, rigid_body.RigidBodyConfig(), device="cpu")
+rb = rigid_body.dynamics_step(rigid_body.RigidBodyConfig(), model, rb, s.q, 0.002)
+assert rb.nu.shape == (1, 32) and bool(torch.isfinite(rb.nu).all())
 loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "cmw_tpu"))
 print("LOADED", loaded)
 assert not loaded, loaded

@@ -10,7 +10,8 @@ runtime's remaining surface:
   - the ergocub_sn000 preset (slow-down 5, wbc_dt 0.005) and, with
     ergoCubSN001's 60 ms MPC, the generator called every 5th MPC tick and
     its stored output re-sliced on the ticks between;
-  - a rigid-plant config refused, telemetry files, and the default device.
+  - a rigid-plant config built and stepped, telemetry files, and the default
+    device of the controller on either plant.
 """
 
 import dataclasses
@@ -26,12 +27,12 @@ from cmw_tpu.cmpc import formulation as JF
 from cmw_tpu.runtime import config as JCfg
 from cmw_tpu.runtime import loop as JL
 from cmw_tpu.runtime import telemetry as JT
-from cmw_tpu.sim import rigid_body as JRB
 from cmw_tpu_torch import convert
 from cmw_tpu_torch.cmpc import formulation as TF
 from cmw_tpu_torch.runtime import config as TCfg
 from cmw_tpu_torch.runtime import loop as TL
 from cmw_tpu_torch.runtime import telemetry as TT
+from cmw_tpu_torch.sim import rigid_body as TRB
 from test_torch_mann_mpc import REF_ATOL, TIME_RTOL
 from test_torch_runtime import B, np_tree, tick_input, to_jax
 from test_torch_runtime import controllers as make_controllers
@@ -222,11 +223,35 @@ def test_sn_generator_calls_and_reslicing_match_jax():
 # --- the rest of the surface ------------------------------------------------------
 
 
-def test_rigid_plant_is_refused():
+def test_rigid_plant_builds_and_steps():
+    """A config with the rigid-body plant builds and steps on the CPU: the
+    settled plant carries the robot's weight and two ticks (an MPC tick
+    first) move it, with its forces in the telemetry."""
     _, tctl = make_controllers()["f32"]
-    with pytest.raises(NotImplementedError):
-        TL.WalkingController(TCfg.ergocub_gazebo_v1(rigid=JRB.RigidBodyConfig()), tctl.model, tctl.weights,
-                             device="cpu")
+    cfg = TCfg.ergocub_gazebo_v1(rigid=TRB.RigidBodyConfig(), rigid_settle_s=0.004, mpc=tctl.cfg.mpc)
+    ctl = TL.WalkingController(cfg, tctl.model, tctl.weights, device="cpu")
+    s0 = ctl.initial_state(B)
+    assert isinstance(s0.rb, TRB.RigidBodyState) and s0.rb.q.shape == (B, ctl.model.nj)
+    assert float(s0.rb.corner_forces[0, ..., 2].sum()) > 0.5 * ctl.mass * 9.80665
+    sN, tel = ctl.run_episode(s0, TL.constant_inputs(2, (0.5, 0.0, 1.0, 0.0), batch=B, device="cpu"))
+    assert int(sN.tick[0]) == 2 and bool(torch.isfinite(tel.q_act).all()) and float(tel.mpc_prim.max()) < 1e-2
+    assert (tel.fz_act > 0).any() and not torch.equal(sN.rb.q, s0.rb.q)
+    assert float(tel.base_act_up.min()) > 0.8
+
+
+def test_rigid_controller_defaults_to_the_card():
+    """WalkingController with cfg.rigid defaults to the card like the
+    kinematic one; without one its initial state (the settle) raises rather
+    than falls back to the CPU."""
+    _, tctl = make_controllers()["f32"]
+    cfg = TCfg.ergocub_gazebo_v1(rigid=TRB.RigidBodyConfig(), rigid_settle_s=0.004, mpc=tctl.cfg.mpc)
+    ctl = TL.WalkingController(cfg, tctl.model, tctl.weights)
+    assert ctl.device.type == "cuda"
+    if torch.cuda.is_available():
+        assert ctl.initial_state(1).rb.q.device.type == "cuda"
+    else:
+        with pytest.raises((AssertionError, RuntimeError)):
+            ctl.initial_state(1)
 
 
 def test_telemetry_round_trip(tmp_path):
