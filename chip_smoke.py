@@ -63,14 +63,14 @@ calls, alone and fed by the MANN trajectory generator, and checks it:
      in f64 (contact flags identical, every channel within GEN_TOL); one MPC
      tick at B = 256 on the fused (K3, K5) and the Riccati path, held against
      each other and against the port's CPU solve within the sentinel, then
-     11 receding fused ticks at B = 1, each re-rooting the generator
+     RECEDING_TICKS receding fused ticks at B = 1, each re-rooting the generator
      mann_advance knots in; K3 and K5 must launch in the phase (K5 sqp_iters
      times per fused solve); printed: the generator's wall per call at
      B = 1 and B = 256, one profiled generator call (device time, kernels,
      idle share) and the B = 1 tick's p50;
   9. the closed loop, joystick -> MANN -> MPC -> swing foot / ZMP / CoM-ZMP /
      IK -> integration (`cmw_tpu_torch.runtime.loop.WalkingController`, the
-     kinematic plant), tick after tick: 150 ticks at B = 1 on the fused MPC
+     kinematic plant), tick after tick: CLOSED_TICKS at B = 1 on the fused MPC
      (K3, K5) against the port on the CPU in f64 (contact flags and fixed feet
      identical on every tick, every telemetry channel within CLOSED_TOL over
      the first MPC period), 30 ticks at B = 1 on the dense MPC (K3, K4), 60
@@ -84,7 +84,7 @@ calls, alone and fed by the MANN trajectory generator, and checks it:
      stand-in: Lagrangian dynamics, penalty contact at the 8 sole corners,
      servos, 2 substeps a tick), joystick -> MANN -> MPC -> IK -> dynamics:
      `initial_state` settles the plant (total corner fz within 10 % of mg,
-     |nu| < 0.1); 90 standing ticks at B = 1 on the fused MPC (K3, K5)
+     |nu| < 0.1); RIGID_TICKS standing at B = 1 on the fused MPC (K3, K5)
      against the port on the CPU in f64 from the same settled state (contact flags, fixed feet and
      active corners identical on every tick, every channel within RIGID_TOL
      over the first MPC period); 60 ticks at B = 256 on the lifted weights
@@ -93,7 +93,19 @@ calls, alone and fed by the MANN trajectory generator, and checks it:
      mpc_prim < 1e-2 and every channel finite; K5 must launch sqp_iters
      times per MPC tick and a rigid WBC tick must not wait for the card;
      printed: the settle's wall, the rigid WBC tick's wall at B = 1 and 256,
-     its launches, and one profiled B = 256 MPC period by span.
+     its launches, and one profiled B = 256 MPC period by span;
+ 11. the push-recovery sweep and the walk through their command lines: a
+     512-scenario sweep by `cmw_tpu_torch.apps.sweep.main` (SWEEP_ARGS: two
+     chunks of 256, 0.6 s, the dense MPC, the kinematic plant, the synthetic
+     weights written as an ONNX file by `mann_onnx_bytes`) printing exactly
+     the JAX CLI's keys, survival_rate in [0, 1], finite statistics, K3 and
+     K4 launched once and sqp_iters x admm_iters times per MPC stage, K5
+     never; its largest pushes (SWEEP_CHECKED) against the port on the CPU
+     in f64 (survival identical, each metric within SWEEP_TOL); the walk CLI
+     at B = 1 split by a checkpoint (--save-state, --resume-state) ending
+     where the straight run ends (bitwise, else within CLOSED_TOL), its
+     telemetry files loading; printed: the sweep's wall and scenario-s/s,
+     the survivors and the recoverable-push radii.
 
 It imports nothing of JAX. Without a CUDA device it fails. The last two
 lines are the kernels' JSON record and {"ok": true, "device": {...}}.
@@ -101,9 +113,15 @@ lines are the kernels' JSON record and {"ok": true, "device": {...}}.
 
 from __future__ import annotations
 
+import contextlib
+import dataclasses
+import io
 import json
 import math
+import os
 import subprocess
+import sys
+import tempfile
 import time
 import warnings
 from typing import NamedTuple
@@ -120,6 +138,8 @@ from cmw_tpu_torch.core import kinematics as kin
 from cmw_tpu_torch.core import lie
 from cmw_tpu_torch.core.centroidal import pack_state
 from cmw_tpu_torch.core.splines import linear_spline
+from cmw_tpu_torch.dist import sweep as DS
+from cmw_tpu_torch.dist.sweep import items_of
 from cmw_tpu_torch.mann import generator as G
 from cmw_tpu_torch.mann import input_builder as IB
 from cmw_tpu_torch.mann import network as N
@@ -127,7 +147,9 @@ from cmw_tpu_torch.ops import _build
 from cmw_tpu_torch.ops import admm_fused as K5
 from cmw_tpu_torch.ops import spd_inverse as K3
 from cmw_tpu_torch.ops import symv as K4
+from cmw_tpu_torch.runtime import checkpoint
 from cmw_tpu_torch.runtime import loop as RL
+from cmw_tpu_torch.runtime import telemetry as RT
 from cmw_tpu_torch.runtime.config import ergocub_gazebo_v1
 from cmw_tpu_torch.sim import rigid_body as RB
 
@@ -493,6 +515,7 @@ def push_saturates_box(solver, cfg):
 # (cmw_tpu/runtime/loop.py:508-1053 on the kinematic plant, while moving)
 
 MANN_SPEED = 0.05  # m/s: the synthetic weights' forward base motion
+RECEDING_TICKS = 6  # phase 8's B = 1 receding fused ticks (cut from 11 for the script's time)
 COM_HEIGHT_DROP = 0.05  # WalkingConfig.com_height_drop (runtime/config.py:46)
 PLAN_PHASES = 16  # WalkingConfig.plan_phases
 # card f32 vs the port's CPU f64, per generator channel after 40 steps; the
@@ -542,6 +565,53 @@ def lifted(W: dict) -> dict:
     b[36 + 3] -= 0.6
     b[36 + 4] -= 0.2
     return dict(W, b_out=b)
+
+
+def _varint(n):
+    out = bytearray()
+    while True:
+        b = n & 0x7F
+        n >>= 7
+        out.append(b | (0x80 if n else 0))
+        if not n:
+            return bytes(out)
+
+
+def _field(num, wire, payload):
+    key = _varint((num << 3) | wire)
+    if wire == 0:
+        return key + _varint(payload)
+    return key + _varint(len(payload)) + payload
+
+
+def _tensor(name, a, packed_dims=False):
+    """TensorProto: dims (1), data_type float (2), name (8), raw_data (9); or
+    the values as packed float_data (4) for packed_dims."""
+    a = np.asarray(a, np.float32)
+    if packed_dims:
+        dims = _field(1, 2, b"".join(_varint(d) for d in a.shape))
+        data = _field(4, 2, a.tobytes())
+    else:
+        dims = b"".join(_field(1, 0, d) for d in a.shape)
+        data = _field(9, 2, a.tobytes())
+    return dims + _field(2, 0, 1) + _field(8, 2, name.encode()) + data
+
+
+def mann_onnx_bytes(W: dict) -> bytes:
+    """The MANN weights W (numpy, as `synthetic_mann_numpy` gives them) as an
+    ONNX file in the protobuf wire format: a ModelProto holding a graph (7)
+    with the initializers (5) under the names the ONNX export gives them
+    (the second layers' dims and data packed, the other way of writing
+    them), and an input and output (11, 12)."""
+    inits = {"0.weight": W["w_in"], "0.bias": W["b_in"], "2.weight": W["w_out"], "2.bias": W["b_out"]}
+    for k in range(3):
+        inits[f"1.gn.w{k}"] = W["gate_w"][k]
+        inits[f"1.gn.b{k}"] = W["gate_b"][k][:, None]
+        inits[f"1.mpn.w{k}"] = W["expert_w"][k]
+        inits[f"1.mpn.b{k}"] = W["expert_b"][k][..., None]
+    graph = b"".join(_field(5, 2, _tensor(n, a, packed_dims=n.endswith("w1"))) for n, a in inits.items())
+    graph += _field(11, 2, _field(1, 2, b"input")) + _field(12, 2, _field(1, 2, b"output"))
+    return _field(1, 0, 7) + _field(7, 2, graph)  # ir_version, graph
 
 
 class Chain(NamedTuple):
@@ -784,7 +854,7 @@ def phase_mann_mpc(tag):
     chain, z_ref = walk_ready_chain(fused, model, gen_cfg, 1)
     joy1 = joysticks(1)
     t_tick = []
-    for k in range(11):
+    for k in range(RECEDING_TICKS):
         torch.cuda.synchronize()
         t = time.perf_counter()
         chain, sol, params = mpc_tick(fused, gen_cfg, model, weights, chain, joy1, z_ref, adv)
@@ -795,8 +865,8 @@ def phase_mann_mpc(tag):
         require(bool(torch.isfinite(sol.z).all()), f"MANN -> MPC tick {k}: non-finite z")
     launches = read_launches()
     com = sol.states[0, 0, :3].tolist()
-    print(f"phase 8 MANN -> MPC main path: 2 B=256 ticks (fused, riccati) and 11 B=1 fused ticks re-rooted "
-          f"{adv} knots in each (t = {float(chain.t):.2f} s, CoM {[round(c, 4) for c in com]}, last cost "
+    print(f"phase 8 MANN -> MPC main path: 2 B=256 ticks (fused, riccati) and {RECEDING_TICKS} B=1 fused ticks "
+          f"re-rooted {adv} knots in each (t = {float(chain.t):.2f} s, CoM {[round(c, 4) for c in com]}, last cost "
           f"{float(sol.cost):.4f}); launches {launches}")
     require(launches["spd_inverse"] > 0 and launches["admm_fused"] == cfg_fused.sqp_iters * n_fused,
             f"MANN -> MPC launches {launches}, expected admm_fused {cfg_fused.sqp_iters} x {n_fused} fused solves")
@@ -809,7 +879,7 @@ def phase_mann_mpc(tag):
 # --- the closed loop: joystick -> MANN -> MPC -> IK, tick after tick -----------
 # (cmw_tpu/runtime/loop.py WalkingController.step on the kinematic plant)
 
-CLOSED_TICKS = 150  # 0.3 s of gait: 5 MPC ticks, each a generator call
+CLOSED_TICKS = 90  # 0.18 s of gait: 3 MPC ticks, each a generator call (cut from 150 for the script's time)
 CLOSED_PERIOD = 30  # ticks of one MPC period (mpc_every at the 60 ms MPC, 2 ms WBC)
 # card f32 against the port's CPU f64 over the first MPC period, per channel,
 # of max(1, max |CPU value|): the CPU's own f32-vs-f64 gap there is at most
@@ -968,13 +1038,13 @@ def phase_closed_loop(tag, weights, dev="cuda"):
         for name, n in got.items():
             launches[name] += n
 
-    # --- B = 1, fused MPC (K3 + K5), 150 ticks, against the CPU in f64 -------
+    # --- B = 1, fused MPC (K3 + K5), CLOSED_TICKS, against the CPU in f64 ------
     joy1 = joysticks(1, device=dev)
     inputs = tick_inputs(joy1, CLOSED_TICKS)
     s0 = ctl.initial_state(1)
     zero_launches()
     t = time.perf_counter()
-    s150, tel = ctl.run_episode(s0, inputs)
+    s_end, tel = ctl.run_episode(s0, inputs)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t
     got = read_launches()
@@ -989,8 +1059,8 @@ def phase_closed_loop(tag, weights, dev="cuda"):
     print(f"phase 9 closed loop B=1 fused (K3 + K5), {CLOSED_TICKS} ticks ({n_mpc} MPC ticks, each a generator call) "
           f"in {wall:.2f} s: launches {got}; contact flags and fixed feet identical to the CPU f64 run on every "
           f"tick; first MPC period, largest gap / max(1, |value|) {gap:.2e} ({chan}); mpc_prim max {prim:.2e} (< "
-          f"{PRIM_TOL:g}), |com_meas - com_mpc|_xy max {err:.2e} (< {COM_TRACK_TOL}); final t {float(s150.t):.4f} s, "
-          f"CoM {[round(c, 4) for c in s150.x9[0, :3].tolist()]} {tag}")
+          f"{PRIM_TOL:g}), |com_meas - com_mpc|_xy max {err:.2e} (< {COM_TRACK_TOL}); final t {float(s_end.t):.4f} s, "
+          f"CoM {[round(c, 4) for c in s_end.x9[0, :3].tolist()]} {tag}")
 
     # --- B = 1, dense MPC (K3 + K4), 30 ticks ---------------------------------
     ctl_dense = RL.WalkingController(cfg_dense, model, weights, device=dev)
@@ -1033,14 +1103,14 @@ def phase_closed_loop(tag, weights, dev="cuda"):
     # --- times: WBC ticks alone, the MPC stage, an MPC period by span ---------
     inp1 = RL.TickInput(*(a[:, 0] for a in inputs))
     inp256 = RL.TickInput(*(a[:, 0] for a in tick_inputs(joy, 1)))
-    _, w1, sync1 = wbc_walls(ctl, s150, inp1, 29)
+    _, w1, sync1 = wbc_walls(ctl, s_end, inp1, 29)
     _, w256, sync256 = wbc_walls(ctl_l, s60, inp256, 29)
     for B, w, n_sync in ((1, w1, sync1), (256, w256, sync256)):
         print(f"phase 9 time WBC tick B={B}: p50 {np.percentile(w, 50):.2f} ms, p90 {np.percentile(w, 90):.2f} ms, "
               f"max {w.max():.2f} ms ({len(w)} ticks, wall, synchronised, sync debug mode off); operations that "
               f"waited for the card in 3 ticks under the mode: {sum(n_sync.values())} {n_sync or ''} {tag}")
         require(not n_sync, f"WBC tick B={B}: operations waited for the card: {n_sync}")
-    for B, c, s_at, inp in ((1, ctl, s150, inp1), (256, ctl_l, s60, inp256)):
+    for B, c, s_at, inp in ((1, ctl, s_end, inp1), (256, ctl_l, s60, inp256)):
         walls = []
         for _ in range(3):
             torch.cuda.synchronize()
@@ -1071,7 +1141,7 @@ def phase_closed_loop(tag, weights, dev="cuda"):
 # --- the closed loop on the rigid-body plant ----------------------------------
 # (cmw_tpu/runtime/loop.py WalkingController with cfg.rigid, sim/rigid_body.py)
 
-RIGID_TICKS = 90  # 3 MPC ticks standing at B = 1
+RIGID_TICKS = 60  # 2 MPC ticks standing at B = 1 (cut from 90 for the script's time)
 RIGID_SWEEP_B = 256
 RIGID_SWEEP_TICKS = 60  # 2 MPC ticks at B = 256; the lifted left foot swings from tick 30
 RIGID_CHECKED = 4  # items of the B = 256 sweep held against the CPU
@@ -1105,16 +1175,6 @@ SETTLE_TOL = {"corner_forces": 2e-2, "nu": 4e-4, "servo_int": 3e-4}
 SETTLE_TOL_DEFAULT = 1e-4
 RIGID_UP = 0.8  # base_act_up: cos of the base tilt (tests/test_rigid_loop.py:106)
 RIGID_Z = 0.55  # m, the lowest base height (tests/test_rigid_loop.py:108)
-
-
-def items_of(s, idx):
-    """Items idx of a LoopState (each tensor's batch axis indexed; the noise
-    generator shared)."""
-    if isinstance(s, torch.Tensor):
-        return s[idx]
-    if isinstance(s, tuple):
-        return type(s)(*(items_of(a, idx) for a in s))
-    return s
 
 
 def to_cpu64(s):
@@ -1200,12 +1260,45 @@ def settle_gaps(s, s64):
             for n, a, b in pairs + [("x9", s.x9, s64.x9)]}
 
 
+@contextlib.contextmanager
+def beside(fn: str, *args: str):
+    """Runs chip_smoke.<fn>(*args) in a process of its own, with no card,
+    while the block runs: a CPU reference that reads nothing the card
+    computes. The block's end waits for it (at most 600 s) and requires exit
+    0, and writes the seconds it waited into the yielded dict ("waited");
+    the process is killed if the block fails."""
+    proc = subprocess.Popen([sys.executable, "-c", f"import sys, chip_smoke; chip_smoke.{fn}(*sys.argv[1:])", *args],
+                            cwd=os.path.dirname(os.path.abspath(__file__)), env=dict(os.environ, CUDA_VISIBLE_DEVICES=""))
+    out = {}
+    try:
+        yield out
+        t = time.perf_counter()
+        require(proc.wait(timeout=600) == 0, f"the CPU reference {fn} exited {proc.returncode}")
+        out["waited"] = time.perf_counter() - t
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+
+
 def rigid_setup():
     """Phase 10's configuration, model and the synthetic weights, plain and
     lifted."""
     W = synthetic_mann_numpy()
     cfg = ergocub_gazebo_v1(rigid=RB.RigidBodyConfig(), mpc=ergocub_mpc_config(kkt_impl="dense", admm_impl="fused"))
     return cfg, kin.ergocub_urdf(), W, lifted(W)
+
+
+def rigid_settle_reference(path):
+    """Writes phase 10's CPU f64 settle (initial_state(1) on rigid_setup()'s
+    plain weights) to the checkpoint file path, its wall in the meta."""
+    torch.set_num_threads(2)
+    cfg, model, W, _ = rigid_setup()
+    ctl64 = RL.WalkingController(cfg, model, convert.mann_weights_from_numpy(W, device="cpu", dtype=torch.float64),
+                                 device="cpu")
+    t = time.perf_counter()
+    s = ctl64.initial_state(1, dtype=torch.float64)
+    checkpoint.save(path, s, {"wall": time.perf_counter() - t})
 
 
 def rigid_cpu_gap():
@@ -1284,18 +1377,20 @@ def phase_rigid_loop(tag, dev="cuda"):
     ctl_l.polished_initial_pose()  # the IK polish, timed apart from the settle
     ctl_l.polished_initial_pose(drop=0.0)
     torch.cuda.synchronize()
-    zero_launches()
-    t = time.perf_counter()
-    s_init = ctl_l.initial_state(B)  # initial_state reads no weights: item 0 starts the B = 1 run too
-    torch.cuda.synchronize()
-    settle_s = time.perf_counter() - t
-    s0 = items_of(s_init, slice(0, 1))
+    with tempfile.TemporaryDirectory() as tmp:
+        settle64 = os.path.join(tmp, "settle64.npz")
+        with beside("rigid_settle_reference", settle64) as ref:
+            zero_launches()
+            t = time.perf_counter()
+            s_init = ctl_l.initial_state(B)  # initial_state reads no weights: item 0 starts the B = 1 run too
+            torch.cuda.synchronize()
+            settle_s = time.perf_counter() - t
+        s0 = items_of(s_init, slice(0, 1))
+        s0_cpu = checkpoint.load(settle64, to_cpu64(s0))
+        cpu_settle_s = checkpoint.load_meta(settle64)["wall"]
     fz = float(s0.rb.corner_forces[..., 2].sum())
     nu = float(s0.rb.nu.abs().max())
     require(abs(fz - mg) / mg < 0.1 and nu < 0.1, f"rigid settle: corner fz {fz} N against mg {mg} N, max|nu| {nu}")
-    t = time.perf_counter()
-    s0_cpu = ctl64.initial_state(1, dtype=torch.float64)
-    cpu_settle_s = time.perf_counter() - t
     gaps = settle_gaps(s0, s0_cpu)
     worst = max((g, n) for n, g in gaps.items())
     for n, g in gaps.items():
@@ -1303,17 +1398,18 @@ def phase_rigid_loop(tag, dev="cuda"):
     require(torch.equal(s0.rb.corner_forces[..., 2].cpu() > 0, s0_cpu.rb.corner_forces[..., 2] > 0),
             "rigid settle: active corners differ between the card and the CPU")
     print(f"phase 10 rigid settle: initial_state({B}), {n_settle} control ticks ({cfg.rigid.substeps} substeps "
-          f"each) on one item, {settle_s:.2f} s on the card (f32; the CPU's f64 settle {cpu_settle_s:.2f} s); total "
+          f"each) on one item, {settle_s:.2f} s on the card (f32; the CPU's f64 settle {cpu_settle_s:.2f} s in a process "
+          f"beside it, {ref['waited']:.1f} s waited for after it); total "
           f"corner fz {fz:.1f} N against mg {mg:.1f} N ({100 * (fz - mg) / mg:+.2f} %), max|nu| {nu:.2e}; against "
           f"the CPU f64 settle: active corners identical, largest gap / max(1, |value|) {worst[0]:.2e} ({worst[1]}) "
           f"{tag}")
 
-    # --- B = 1: 90 standing ticks against the CPU in f64 ------------------------
+    # --- B = 1: RIGID_TICKS standing against the CPU in f64 ---------------------
     # (the CPU run starts from the card's settled state, in f64)
     stand = torch.tensor([[0.0, 0.0, 1.0, 0.0]], device=dev)
     zero_launches()
     t = time.perf_counter()
-    s90, tel, active = rigid_run(ctl, s0, tick_inputs(stand, RIGID_TICKS))
+    s_stand, tel, active = rigid_run(ctl, s0, tick_inputs(stand, RIGID_TICKS))
     torch.cuda.synchronize()
     wall = time.perf_counter() - t
     got = read_launches()
@@ -1372,7 +1468,7 @@ def phase_rigid_loop(tag, dev="cuda"):
     # --- times: rigid WBC ticks alone, their launches, an MPC period by span --
     inp1 = RL.TickInput(*(a[:, 0] for a in tick_inputs(stand, 1)))
     inp256 = RL.TickInput(*(a[:, 0] for a in tick_inputs(joy, 1)))
-    for b, c, s_at, inp in ((1, ctl, s90, inp1), (B, ctl_l, s60, inp256)):
+    for b, c, s_at, inp in ((1, ctl, s_stand, inp1), (B, ctl_l, s60, inp256)):
         _, w, n_sync = wbc_walls(c, s_at, inp, 29)
         dev_ms, count, (key, top) = device_time(lambda: c._wbc_stage(s_at, inp))
         print(f"phase 10 time rigid WBC tick B={b}: p50 {np.percentile(w, 50):.2f} ms, p90 {np.percentile(w, 90):.2f} "
@@ -1393,6 +1489,268 @@ def phase_rigid_loop(tag, dev="cuda"):
         print(f"phase 10 profile rigid MPC period B=256 span {name}: device {ms:.3f} ms "
               f"({100 * ms / max(dev_ms, 1e-9):.1f} %), {count} kernels, host {host:.1f} ms under the profiler {tag}")
     print(f"phase 10 took {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
+# --- the push-recovery sweep and the walk through their command lines ---------
+# (cmw_tpu/dist/sweep.py, cmw_tpu/apps/sweep.py, cmw_tpu/apps/walk.py)
+
+# the CLI's flags: 512 scenarios in two chunks of 256, 0.6 s (300 ticks, 10
+# MPC periods), the push window from 0.06 s for 0.4 s (ticks 29-228, JAX's
+# truncation), magnitudes in [-2, 2] m/s^2, the dense KKT (K3 once and K4 48
+# times an MPC stage); the production ergocub_gazebo_v1() on the CLI's
+# default model, kin.ergocub_approx()
+SWEEP_B, SWEEP_CHUNK, SWEEP_SECONDS = 512, 256, 0.6
+SWEEP_ARGS = ["--batch", str(SWEEP_B), "--chunk", str(SWEEP_CHUNK), "--seconds", str(SWEEP_SECONDS),
+              "--push-t0", "0.06", "--push-duration", "0.4", "--push-max", "2.0", "--kkt", "dense", "--per-scenario"]
+# what the JAX CLI prints with --per-scenario (cmw_tpu/dist/sweep.py:235-252,
+# cmw_tpu/apps/sweep.py:183-190)
+SWEEP_KEYS = {"batch", "survival_rate", "mean_supp_dev", "max_supp_dev", "survived", "recoverable_push_x",
+              "recoverable_push_y", "push_mags", "push_dirs", "survived_mask", "step_adjustment", "wall_seconds",
+              "scenario_seconds_per_s", "devices"}
+SWEEP_CHECKED = (0, 1, 510, 511)  # the largest pushes: -x, -y, +x, +y
+SWEEP_METRICS = ("supp_dev", "z_dev", "track_err", "finite", "up_min", "bz_min", "zb0")  # dist/sweep._episode_metrics
+# card f32 against the port's CPU f64 on SWEEP_CHECKED, per metric, of
+# max(1, |CPU value|): 20x the largest of the CPU's own f32-vs-f64 gaps on the
+# same items over SWEEP_ORDERS (`sweep_flip()`: supp_dev 3.7e-5, z_dev 3.0e-5,
+# track_err 5.6e-7, up_min 4.9e-6, bz_min 2.4e-6, zb0 7.0e-8), rounded
+# up; `finite` identical. supp_dev's and z_dev's largest gaps are discrete:
+# an item's MPC solution jumps at one MPC tick (mpc_cost ~0.3 % apart) in
+# some f32 orders and batches and not in others (`sweep_flip`'s parting ticks)
+SWEEP_TOL = {"supp_dev": 8e-4, "z_dev": 7e-4, "track_err": 2e-5, "finite": 0.0, "up_min": 1e-4, "bz_min": 5e-5,
+             "zb0": 2e-6}
+# the walk CLI at B = 1: 0.12 s pushed and saved, 0.06 s resumed, against 0.18
+# s straight; the push inside the first 0.12 s
+WALK_ARGS = ["--joystick", "0:0.6,0,1,0"]
+WALK_PUSH = ["--push", "0.02,0.08,1.5,-1.0,0"]
+
+
+@contextlib.contextmanager
+def recorded_sweep(run: bool = True):
+    """Records, into the yielded dict, each run_sweep call of the sweep CLI
+    ("calls": its controller and keywords) and what each call of
+    dist/sweep._episode_metrics returns ("metrics": the per-scenario metrics
+    of a sweep). With run False, run_sweep only records (and returns {})."""
+    from cmw_tpu_torch.apps import sweep as sweep_app
+
+    rec, real_run, real_metrics = {"calls": [], "metrics": []}, sweep_app.run_sweep, DS._episode_metrics
+
+    def recording_run(ctl, **kw):
+        rec["calls"].append((ctl, kw))
+        return real_run(ctl, **kw) if run else {}
+
+    def recording_metrics(*args):
+        rec["metrics"].append(real_metrics(*args))
+        return rec["metrics"][-1]
+
+    sweep_app.run_sweep, DS._episode_metrics = recording_run, recording_metrics
+    try:
+        yield rec
+    finally:
+        sweep_app.run_sweep, DS._episode_metrics = real_run, real_metrics
+
+
+def write_mann(directory) -> str:
+    """The synthetic mann4 weights as an ONNX file in directory (f32, as the
+    CLIs read them); returns its path."""
+    path = os.path.join(directory, "mann4.onnx")
+    with open(path, "wb") as f:
+        f.write(mann_onnx_bytes(synthetic_mann_numpy()))
+    return path
+
+
+def sweep_call_cpu(mann):
+    """The run_sweep call the sweep CLI makes under SWEEP_ARGS with --cpu,
+    recorded and not run: (controller, keywords)."""
+    from cmw_tpu_torch.apps import sweep as sweep_app
+
+    with recorded_sweep(run=False) as rec, contextlib.redirect_stdout(io.StringIO()):
+        sweep_app.main(SWEEP_ARGS + ["--mann", mann, "--cpu"])
+    return rec["calls"][0]
+
+
+def sweep_scenarios(dtype, mann, call, device="cpu", **mpc):
+    """The scenarios of a recorded run_sweep call (controller, keywords)
+    rebuilt on device in dtype, on its configuration (with the MPCConfig
+    fields mpc replaced) and the weights in the ONNX file mann:
+    (controller, initial LoopState, TickInput)."""
+    ctl, kw = call
+    cfg = dataclasses.replace(ctl.cfg, mpc=dataclasses.replace(ctl.cfg.mpc, **mpc))
+    ctl = RL.WalkingController(cfg, ctl.model, N.load_mann_weights(mann, device=device, dtype=dtype), device=device)
+    s0, inputs = DS.build_scenarios(ctl, kw["batch"], kw["seconds"], kw["push_max"], kw["push_duration"], kw["vx"],
+                                    kw["ramp"], kw["push_t0"], dtype=dtype)
+    return ctl, s0, inputs
+
+
+def sweep_items(dtype, mann, call, device="cpu", **mpc):
+    """sweep_scenarios' items SWEEP_CHECKED run alone (B = 4): (survived,
+    per-scenario metrics through dist/sweep._shard_metrics, mpc_cost [4, S]
+    of every tick), as numpy arrays."""
+    ctl, s0, inputs = sweep_scenarios(dtype, mann, call, device, **mpc)
+    idx = torch.tensor(SWEEP_CHECKED, device=device)
+    costs, fold_episode = [], ctl.run_episode_fold
+    ctl.run_episode_fold = lambda s, inp, fold, acc0: fold_episode(
+        s, inp, lambda acc, tel: costs.append(tel.mpc_cost) or fold(acc, tel), acc0)
+    with recorded_sweep() as rec:
+        survived, _ = DS._shard_metrics(ctl, items_of(s0, idx), items_of(inputs, idx), False,
+                                        up_thresh=call[1]["up_thresh"], model_guards=call[1]["model_guards"])
+    return (survived.cpu().numpy(), [m.cpu().numpy() for m in rec["metrics"][0]],
+            torch.stack(costs, dim=1).cpu().double().numpy())
+
+
+def sweep_reference(mann, path):
+    """Writes the CPU f64 reference of SWEEP_CHECKED to the npz file path:
+    sweep_items on the run_sweep call the sweep CLI makes with --cpu,
+    that call's keywords and configuration, and the wall. Phase 11 runs it
+    in a process of its own beside the card's sweep, whose results it does
+    not read."""
+    torch.set_num_threads(2)
+    t = time.perf_counter()
+    call = sweep_call_cpu(mann)
+    survived, metrics, _ = sweep_items(torch.float64, mann, call)
+    np.savez(path, survived=survived, kw=json.dumps(call[1]), cfg=repr(call[0].cfg), wall=time.perf_counter() - t,
+             **dict(zip(SWEEP_METRICS, metrics)))
+
+
+def metric_gaps(got, want):
+    """{metric: |got - want| / max(1, |want|)} over the items (numpy),
+    `finite` as 0 or 1 (identical or not)."""
+    gaps = {}
+    for name, a, b in zip(SWEEP_METRICS, got, want):
+        a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+        gaps[name] = float(np.abs(a - b).max()) / max(1.0, float(np.abs(b).max()))
+    return gaps
+
+
+# the f32 orders of the dense KKT path whose gaps to f64 set SWEEP_TOL (MPCConfig
+# fields replaced): the x-update packed (K4 and its twin: the lower blocks
+# mirrored; the card's default) or the full matrix (the CPU's default), and
+# the Cholesky + triangular-solve inverse in K3's place
+SWEEP_ORDERS = {"packed x-update": {"xupdate_impl": "symv"}, "full-matrix x-update": {"xupdate_impl": "dense"},
+                "xla inverse, packed x-update": {"inverse_impl": "xla", "xupdate_impl": "symv"}}
+
+
+def sweep_flip(device="cpu"):
+    """The port's own f32-vs-f64 gaps behind SWEEP_TOL, and where they come
+    from: SWEEP_CHECKED alone (B = 4) in f32 on device in each of
+    SWEEP_ORDERS against the CPU f64: each metric's gap, per item the first
+    tick at which mpc_cost parts from f64's by more than 1e-4 of max(1,
+    |cost|) with both costs there, and the largest gaps over the orders. Run
+    it as python3 -c 'import chip_smoke; chip_smoke.sweep_flip()', or with
+    "cuda" on the card."""
+    with tempfile.TemporaryDirectory() as tmp:
+        mann = write_mann(tmp)
+        call = sweep_call_cpu(mann)
+        surv64, m64, cost64 = sweep_items(torch.float64, mann, call)
+        print(f"f64 survived {surv64.tolist()}; " + "; ".join(f"{n} {m.tolist()}" for n, m in zip(SWEEP_METRICS, m64)))
+        worst = dict.fromkeys(SWEEP_METRICS, 0.0)
+        for order, mpc in SWEEP_ORDERS.items():
+            t = time.perf_counter()
+            surv32, m32, cost = sweep_items(torch.float32, mann, call, device, **mpc)
+            gaps = metric_gaps(m32, m64)
+            worst = {n: max(worst[n], g) for n, g in gaps.items()}
+            parted = []
+            for i, item in enumerate(SWEEP_CHECKED):
+                far = np.nonzero(np.abs(cost[i] - cost64[i]) > 1e-4 * max(1.0, np.abs(cost64[i]).max()))[0]
+                if len(far):
+                    parted.append(f"item {item} at tick {far[0]} ({cost[i, far[0]]:.6g} against "
+                                  f"{cost64[i, far[0]]:.6g})")
+            print(f"sweep_flip {device} f32 {order} ({time.perf_counter() - t:.1f} s): survived {surv32.tolist()}; "
+                  f"gap / max(1, |f64|) {', '.join(f'{n} {g:.3e}' for n, g in gaps.items())}; mpc_cost parts from "
+                  f"f64's: {', '.join(parted) or 'never'}")
+    print(f"largest f32 gap over the orders: {', '.join(f'{n} {g:.3e}' for n, g in worst.items())}")
+
+
+def checkpoint_gap(a, b):
+    """Two checkpoint files of one layout: (largest |a - b| / max(1, |b|) over
+    the float leaves, whether every leaf is bitwise equal)."""
+    with np.load(a) as fa, np.load(b) as fb:
+        require(fa.files == fb.files, f"{a} and {b} hold other leaves")
+        worst, same = 0.0, True
+        for name in fa.files:
+            x, y = fa[name], fb[name]
+            require(x.dtype == y.dtype and x.shape == y.shape, f"checkpoint leaf {name}: {x.dtype}{x.shape} vs "
+                                                               f"{y.dtype}{y.shape}")
+            same = same and np.array_equal(x, y)
+            if x.dtype.kind == "f":
+                worst = max(worst, float(np.abs(x - y).max(initial=0.0)) / max(1.0, float(np.abs(y).max(initial=0.0))))
+    return worst, same
+
+
+def phase_sweep(tag):
+    """Phase 11: the push-recovery sweep through `apps.sweep.main` on the
+    card (SWEEP_ARGS), its largest pushes against the port on the CPU in
+    f64, and the walk CLI split by a checkpoint against a straight run.
+    Returns the launches of the sweep."""
+    from cmw_tpu_torch.apps import sweep as sweep_app
+    from cmw_tpu_torch.apps import walk as walk_app
+
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        mann = write_mann(tmp)
+        reference = os.path.join(tmp, "reference.npz")
+        with beside("sweep_reference", mann, reference) as ref:
+            # --- 512 scenarios through the CLI ----------------------------------
+            printed = io.StringIO()
+            zero_launches()
+            t = time.perf_counter()
+            with recorded_sweep() as rec, contextlib.redirect_stdout(printed):
+                sweep_app.main(SWEEP_ARGS + ["--mann", mann])
+            wall = time.perf_counter() - t
+            launches = read_launches()
+        out = json.loads(printed.getvalue().strip().splitlines()[-1])
+        require(set(out) == SWEEP_KEYS, f"sweep CLI keys {sorted(out)} are not the JAX CLI's {sorted(SWEEP_KEYS)}")
+        stats = [out[k] for k in ("survival_rate", "mean_supp_dev", "max_supp_dev")]
+        require(0.0 <= out["survival_rate"] <= 1.0 and all(math.isfinite(v) for v in stats),
+                f"sweep CLI statistics {stats}")
+        cfg = ergocub_gazebo_v1()
+        stages = SWEEP_B // SWEEP_CHUNK * round(SWEEP_SECONDS / cfg.wbc_dt) // cfg.mpc_every
+        want = {"spd_inverse": stages, "symv_packed": cfg.mpc.sqp_iters * cfg.mpc.admm_iters * stages,
+                "admm_fused": 0}
+        require(launches == want, f"sweep CLI launches {launches}, expected {want} (10 MPC stages x 2 chunks)")
+        print(f"phase 11 sweep CLI (apps.sweep.main {' '.join(SWEEP_ARGS)}), {SWEEP_B} scenarios in chunks of "
+              f"{SWEEP_CHUNK}: launches {launches}; wall {wall:.2f} s (the CLI's own {out['wall_seconds']} s), "
+              f"{out['scenario_seconds_per_s']} scenario-s/s; survived {out['survived']} of {SWEEP_B} "
+              f"(survival_rate {out['survival_rate']}), mean_supp_dev {out['mean_supp_dev']}, max_supp_dev "
+              f"{out['max_supp_dev']}, recoverable push x {out['recoverable_push_x']} y {out['recoverable_push_y']} "
+              f"m/s^2 {tag}")
+
+        # --- the largest pushes against the CPU in f64 ---------------------------
+        ctl, kw = rec["calls"][0]
+        with np.load(reference) as f:
+            require(json.loads(str(f["kw"])) == kw and str(f["cfg"]) == repr(ctl.cfg),
+                    "the CPU reference's run_sweep call is not the card's")
+            surv64, m64, cpu_wall = f["survived"], [f[n] for n in SWEEP_METRICS], float(f["wall"])
+        idx = list(SWEEP_CHECKED)
+        card = [m[idx].cpu().numpy() for m in rec["metrics"][0]]
+        surv_card = [out["survived_mask"][i] for i in SWEEP_CHECKED]
+        require(surv_card == surv64.tolist(), f"sweep items {SWEEP_CHECKED} survived {surv_card} on the card, "
+                                              f"{surv64.tolist()} on the CPU f64")
+        gaps = metric_gaps(card, m64)
+        for name, gap in gaps.items():
+            require(gap <= SWEEP_TOL[name], f"sweep {name} card vs CPU f64 {gap} (limit {SWEEP_TOL[name]})")
+        print(f"phase 11 sweep items {idx} card f32 vs CPU f64 ({cpu_wall:.1f} s on the CPU in a process beside the "
+              f"sweep, {ref['waited']:.1f} s waited for after it): survived {surv_card} on both; gap / max(1, |value|) "
+              f"{', '.join(f'{n} {g:.2e}' for n, g in gaps.items())}; supp_dev {card[0].tolist()} {tag}")
+
+        # --- the walk CLI split by a checkpoint ----------------------------------
+        files = {name: os.path.join(tmp, f"{name}.npz") for name in ("a", "b", "c", "ta", "tb", "tc")}
+        common = ["--mann", mann] + WALK_ARGS
+        t = time.perf_counter()
+        walk_app.main(common + WALK_PUSH + ["--seconds", "0.12", "--save-state", files["a"], "--out", files["ta"]])
+        walk_app.main(common + ["--seconds", "0.06", "--resume-state", files["a"], "--save-state", files["b"],
+                                "--out", files["tb"]])
+        walk_app.main(common + WALK_PUSH + ["--seconds", "0.18", "--save-state", files["c"], "--out", files["tc"]])
+        walk_wall = time.perf_counter() - t
+        gap, same = checkpoint_gap(files["b"], files["c"])
+        require(same or gap <= CLOSED_TOL_DEFAULT, f"walk CLI: the split run ends {gap} from the straight one")
+        for name, ticks in (("ta", 60), ("tb", 30), ("tc", 90)):
+            chans, _ = RT.load(files[name])
+            require(chans["com_mpc"].shape == (1, ticks, 3), f"walk telemetry {name}: {chans['com_mpc'].shape}")
+        print(f"phase 11 walk CLI B=1 (Riccati MPC), 0.12 s pushed + checkpoint + 0.06 s resumed against 0.18 s "
+              f"straight in {walk_wall:.1f} s: final states bitwise equal {same}, largest gap {gap:.2e}; the "
+              f"three telemetry files load {tag}")
+    print(f"phase 11 took {time.perf_counter() - t_phase:.1f} s")
     return launches
 
 
@@ -1637,6 +1995,9 @@ def main():
     # --- 10. the closed loop on the rigid-body plant -------------------------
     l_rigid = phase_rigid_loop(tag)
 
+    # --- 11. the push-recovery sweep and the walk through their CLIs ---------
+    l_sweep = phase_sweep(tag)
+
     sources = {"spd_inverse": ("cmw_tpu_torch/csrc/spd_inverse.cu", "cmw_tpu/ops/spd_inverse.py:132"),
                "symv_packed": ("cmw_tpu_torch/csrc/symv.cu", "cmw_tpu/ops/symv.py:77"),
                "admm_fused": ("cmw_tpu_torch/csrc/admm_fused.cu", "cmw_tpu/ops/admm_fused.py:143")}
@@ -1646,7 +2007,7 @@ def main():
         b_ms, b_by, _, _ = bounds[(name, B512)]
         record["kernels"].append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": l_dense[name] + l_fused[name] + l_mann[name] + l_closed[name] + l_rigid[name],
+            "launches": l_dense[name] + l_fused[name] + l_mann[name] + l_closed[name] + l_rigid[name] + l_sweep[name],
             "max_abs_err": errs[name],
             "ms": ms, "plain_ms": plain,
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib,

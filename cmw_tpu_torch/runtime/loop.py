@@ -948,15 +948,57 @@ class WalkingController:
             s = self._mpc_stage(s, inp)
         return self._wbc_stage(s, inp)
 
+    def _episode(self, s0: LoopState, inputs: TickInput, tick: int, on_tick) -> LoopState:
+        """The episode's loop: `step` on each tick's inputs from the Python
+        int `tick`, each tick's batched Telemetry [B, ...] handed to on_tick.
+        Returns the final state."""
+        s = s0
+        for k in range(inputs.joypad.shape[1]):
+            s, tel = self.step(s, TickInput(*(a[:, k] for a in inputs)), tick + k)
+            on_tick(tel)
+        return s
+
     def run_episode(self, s0: LoopState, inputs: TickInput):
         """inputs: TickInput [B, S, ...]. Returns (final state, Telemetry
         stacked [B, S, ...]). s0's tick is read from the state once."""
-        tick = int(s0.tick[0])
-        s, tels = s0, []
-        for k in range(inputs.joypad.shape[1]):
-            s, tel = self.step(s, TickInput(*(a[:, k] for a in inputs)), tick + k)
-            tels.append(tel)
+        tels = []
+        s = self._episode(s0, inputs, int(s0.tick[0]), tels.append)
         return s, Telemetry(*(torch.stack(parts, dim=1) for parts in zip(*tels)))
+
+    def _blocked_tick(self, s0: LoopState, inputs: TickInput) -> int:
+        """s0's tick, read once as run_episode reads it, after the blocked
+        episode's preconditions (cmw_tpu/runtime/loop.py:1508-1564): it
+        starts on an MPC tick and runs whole MPC periods. ValueError where
+        JAX asserts."""
+        k = self.cfg.mpc_every
+        S = inputs.joypad.shape[1]
+        tick = int(s0.tick[0])
+        if tick % k:
+            raise ValueError(f"the episode must start on an MPC tick: tick {tick} is not a multiple of {k}")
+        if S % k:
+            raise ValueError(f"episode length {S} must be a multiple of {k}")
+        return tick
+
+    def run_episode_blocked(self, s0: LoopState, inputs: TickInput):
+        """run_episode over whole MPC periods from an MPC tick (the batched
+        sweep's episode): each period one `_mpc_stage` on its first input,
+        then mpc_every `_wbc_stage`s. The same (final state, Telemetry
+        [B, S, ...])."""
+        self._blocked_tick(s0, inputs)
+        return self.run_episode(s0, inputs)
+
+    def run_episode_fold(self, s0: LoopState, inputs: TickInput, fold, acc0):
+        """The blocked episode folding each tick's batched Telemetry [B, ...]
+        into an accumulator, acc = fold(acc, tel), in place of stacking it:
+        memory O(1) in the episode length. Returns (final state, acc)."""
+        acc = acc0
+
+        def on_tick(tel):
+            nonlocal acc
+            acc = fold(acc, tel)
+
+        s = self._episode(s0, inputs, self._blocked_tick(s0, inputs), on_tick)
+        return s, acc
 
 
 def constant_inputs(S: int, joypad=(0.0, 0.0, 1.0, 0.0), dtype=torch.float32, *, batch: int = 1,

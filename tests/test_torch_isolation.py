@@ -1,6 +1,8 @@
 """The port runs without JAX: importing `cmw_tpu_torch` (and `chip_smoke.py`),
-running a solve, a MANN rollout, a few ticks of the walking controller and
-a step of the rigid-body plant loads neither `jax` nor the JAX package `cmw_tpu`."""
+running a solve, a MANN rollout, a few ticks of the walking controller, a
+step of the rigid-body plant, a push sweep at B = 2 over one MPC period and
+a checkpoint round trip, and importing the command-line entry points, loads
+neither `jax` nor the JAX package `cmw_tpu`."""
 
 import os
 import subprocess
@@ -57,6 +59,18 @@ from cmw_tpu_torch.sim import rigid_body
 rb = rigid_body.initial_state(model, s.q, s.base_rot, s.base_pos, rigid_body.RigidBodyConfig(), device="cpu")
 rb = rigid_body.dynamics_step(rigid_body.RigidBodyConfig(), model, rb, s.q, 0.002)
 assert rb.nu.shape == (1, 32) and bool(torch.isfinite(rb.nu).all())
+import os, tempfile
+from cmw_tpu_torch.apps import sweep as sweep_app, walk as walk_app
+from cmw_tpu_torch.dist import sweep
+from cmw_tpu_torch.runtime import checkpoint
+
+out = sweep.run_sweep(ctl, 2, 0.06, push_t0=0.01, per_scenario=True)
+assert out["batch"] == 2 and len(out["survived_mask"]) == 2 and 0.0 <= out["survival_rate"] <= 1.0
+with tempfile.TemporaryDirectory() as tmp:
+    path = os.path.join(tmp, "state.npz")
+    checkpoint.save(path, s, meta={"t": float(s.t[0])})
+    back = checkpoint.load(path, ctl.initial_state(1))
+assert back.rb is None and torch.equal(back.q, s.q) and int(back.tick[0]) == 3
 loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "cmw_tpu"))
 print("LOADED", loaded)
 assert not loaded, loaded

@@ -17,7 +17,7 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import lifted, synthetic_mann_numpy
+from chip_smoke import lifted, mann_onnx_bytes, synthetic_mann_numpy
 from cmw_tpu.core import kinematics as JK
 from cmw_tpu.mann import generator as JG
 from cmw_tpu.mann import input_builder as JIB
@@ -165,51 +165,7 @@ def test_forward_matches_jax(dt):
     assert all(a is b for a, b in zip(jax.tree_util.tree_leaves(net.weights), jax.tree_util.tree_leaves(tw)))
 
 
-# --- a small ONNX file, encoded here (protobuf wire format) ------------------
-
-
-def _varint(n):
-    out = bytearray()
-    while True:
-        b = n & 0x7F
-        n >>= 7
-        out.append(b | (0x80 if n else 0))
-        if not n:
-            return bytes(out)
-
-
-def _field(num, wire, payload):
-    key = _varint((num << 3) | wire)
-    if wire == 0:
-        return key + _varint(payload)
-    return key + _varint(len(payload)) + payload
-
-
-def _tensor(name, a, packed_dims=False):
-    """TensorProto: dims (1), data_type float (2), name (8), raw_data (9); or
-    the values as packed float_data (4) for packed_dims."""
-    a = np.asarray(a, np.float32)
-    if packed_dims:
-        dims = _field(1, 2, b"".join(_varint(d) for d in a.shape))
-        data = _field(4, 2, a.tobytes())
-    else:
-        dims = b"".join(_field(1, 0, d) for d in a.shape)
-        data = _field(9, 2, a.tobytes())
-    return dims + _field(2, 0, 1) + _field(8, 2, name.encode()) + data
-
-
-def _onnx(W):
-    """ModelProto holding a graph (7) with the MANN initializers (5) under
-    the names the ONNX export gives them, and an input and output (11, 12)."""
-    inits = {"0.weight": W["w_in"], "0.bias": W["b_in"], "2.weight": W["w_out"], "2.bias": W["b_out"]}
-    for k in range(3):
-        inits[f"1.gn.w{k}"] = W["gate_w"][k]
-        inits[f"1.gn.b{k}"] = W["gate_b"][k][:, None]
-        inits[f"1.mpn.w{k}"] = W["expert_w"][k]
-        inits[f"1.mpn.b{k}"] = W["expert_b"][k][..., None]
-    graph = b"".join(_field(5, 2, _tensor(n, a, packed_dims=n.endswith("w1"))) for n, a in inits.items())
-    graph += _field(11, 2, _field(1, 2, b"input")) + _field(12, 2, _field(1, 2, b"output"))
-    return _field(1, 0, 7) + _field(7, 2, graph)  # ir_version, graph
+# --- a small ONNX file, encoded by chip_smoke.mann_onnx_bytes ----------------
 
 
 def _small_weights(seed=7, n_in=6, n_g=5, E=3, n_h=4, n_out=3):
@@ -229,7 +185,7 @@ def test_onnx_loader_matches_jax(tmp_path):
     forwards agree on it."""
     W = _small_weights()
     path = tmp_path / "mann_small.onnx"
-    path.write_bytes(_onnx(W))
+    path.write_bytes(mann_onnx_bytes(W))
     jw = JN.load_mann_weights(str(path))
     tw = TN.load_mann_weights(str(path), device="cpu")
     for name, j, t in zip(jw._fields, jax.tree_util.tree_leaves(tuple(jw)), jax.tree_util.tree_leaves(tuple(tw))):
