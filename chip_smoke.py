@@ -105,7 +105,20 @@ calls, alone and fed by the MANN trajectory generator, and checks it:
      at B = 1 split by a checkpoint (--save-state, --resume-state) ending
      where the straight run ends (bitwise, else within CLOSED_TOL), its
      telemetry files loading; printed: the sweep's wall and scenario-s/s,
-     the survivors and the recoverable-push radii.
+     the survivors and the recoverable-push radii;
+ 12. the remaining entry points, each part with its wall: the dense KKT's
+     bf16 option (kkt_dtype="bf16", kkt_f32_tail in BF16_TAILS) as the
+     B = 512 x KB = 4 chain, its solves/s beside the f32 dense chain's, and
+     on B = 4 converged solves (BF16_ENVELOPE) within JAX's envelope against
+     f32 (prim_res < 5e-2, cost within 8 %), K3 launched and K4 and K5 not;
+     the parity CLI (`apps.parity.main([])`: the solve on the card, the scipy
+     oracle beside it) with parity_ok true; the walk CLI with `--robot-dir`
+     on a directory written from ergocub_gazebo_v1() (`write_robot_dir`,
+     which must load back to that config) for ROBOT_DIR_SECONDS, finite; a
+     headless `RealtimeWalker` on the native scheduler for WALKER_SECONDS
+     with the stick changed mid-run (no failure, ticks, finite; both tasks'
+     stats and deadline misses printed); `entry()`, `dryrun_multichip(1)`
+     (NCCL, one rank) and `apps.scaling.main(["--devices", "1"])`.
 
 It imports nothing of JAX. Without a CUDA device it fails. The last two
 lines are the kernels' JSON record and {"ok": true, "device": {...}}.
@@ -122,6 +135,7 @@ import os
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 import warnings
 from typing import NamedTuple
@@ -474,9 +488,10 @@ def tick_chain(solver, cfg, ticks, push=0.0):
     return sols, times
 
 
-def bench_chain(solver, cfg, B=512, KB=4):
+def bench_chain(solver, cfg, B=512, KB=4, prim_max=1e-2):
     """bench.py's shape: B lateral pushes in linspace(-1, 1), KB warm-started
-    solves of the same parameters. Returns (costs [KB, B], prim [KB, B], s)."""
+    solves of the same parameters. Returns (costs [KB, B], prim [KB, B], s).
+    The costs must be finite and, unless prim_max is None, prim_res below it."""
     params = make_params(cfg, lateral(torch.linspace(-1.0, 1.0, B)))
     warm = solver.cold_start(B)
     costs, prims = [], []
@@ -491,7 +506,7 @@ def bench_chain(solver, cfg, B=512, KB=4):
     seconds = time.perf_counter() - t
     costs, prims = torch.stack(costs), torch.stack(prims)
     require(bool(torch.isfinite(costs).all()), "bench chain: non-finite cost")
-    require(float(prims.max()) < 1e-2, f"bench chain: prim_res {float(prims.max())}")
+    require(prim_max is None or float(prims.max()) < prim_max, f"bench chain: prim_res {float(prims.max())}")
     return costs, prims, seconds
 
 
@@ -1746,11 +1761,195 @@ def phase_sweep(tag):
         require(same or gap <= CLOSED_TOL_DEFAULT, f"walk CLI: the split run ends {gap} from the straight one")
         for name, ticks in (("ta", 60), ("tb", 30), ("tc", 90)):
             chans, _ = RT.load(files[name])
-            require(chans["com_mpc"].shape == (1, ticks, 3), f"walk telemetry {name}: {chans['com_mpc'].shape}")
+            require(chans["com_mpc"].shape == (ticks, 3), f"walk telemetry {name}: {chans['com_mpc'].shape}")
         print(f"phase 11 walk CLI B=1 (Riccati MPC), 0.12 s pushed + checkpoint + 0.06 s resumed against 0.18 s "
               f"straight in {walk_wall:.1f} s: final states bitwise equal {same}, largest gap {gap:.2e}; the "
               f"three telemetry files load {tag}")
     print(f"phase 11 took {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
+# --------------------------------------------------------------------------
+# phase 12: the remaining entry points
+# --------------------------------------------------------------------------
+
+BF16_TAILS = (0, 8)  # kkt_f32_tail of the bf16 runs
+BF16_PRIM_MAX, BF16_COST_RTOL = 5e-2, 0.08  # JAX's envelope against f32 (tests/test_cmpc.py:211-235)
+BF16_ENVELOPE = dict(sqp_iters=6, admm_iters=80, refactor_every_sqp=True)  # converged solves, as there
+BF16_PUSHES = (0.0, 1.2, -1.2, 0.6)
+ROBOT_DIR_SECONDS = 0.3  # the walk CLI's run on the written robot directory
+WALKER_SECONDS, WALKER_SCALE = 6.0, 0.05  # the headless real-time walker: wall seconds, virtual-clock rate
+WALKER_JOYPADS = ((0.5, 0.0), (0.0, 0.3))  # the stick before and after mid-run
+
+
+def write_robot_dir(directory, cfg) -> str:
+    """A reference-style robot directory holding every key that
+    runtime/ini.load_robot_config reads, with the values of the
+    WalkingConfig `cfg`, under directory/robot; returns its path. For
+    ergocub_gazebo_v1() it loads back to that config."""
+    m, g, ib = cfg.mpc, cfg.gen, cfg.input_builder
+
+    def tup(v):
+        return "(" + ", ".join(repr(float(x)) for x in v) + ")"
+
+    def contact(i):
+        return (f"[CONTACT_{i}]\nnumber_of_corners {len(m.corners[i])}\n"
+                + "".join(f"corner_{k} {tup(c)}\n" for k, c in enumerate(m.corners[i]))
+                + f"bounding_box_lower_limit {tup(m.bbox_lower[i])}\nbounding_box_upper_limit {tup(m.bbox_upper[i])}\n")
+
+    kp = cfg.ik.kp_posture
+    files = {
+        "centroidal_mpc_walking.ini": f"[WHOLE_BODY_RUNNER]\nsampling_time {cfg.wbc_dt}\n\n[COM_ZMP_CONTROLLER]\n"
+                                      f"com_gain {tup(cfg.gains.com_gain)}\nzmp_gain {tup(cfg.gains.zmp_gain)}\n",
+        "centroidal_mpc.ini": f"sampling_time {m.dt}\ntime_horizon {m.horizon}\nnumber_of_maximum_contacts "
+                              f"{m.n_contacts}\nstatic_friction_coefficient {m.mu}\ncom_weight {tup(m.com_weight)}\n"
+                              f"contact_position_weight {m.contact_position_weight}\nforce_rate_of_change_weight "
+                              f"{tup(m.force_rate_weight)}\nangular_momentum_weight {m.angular_momentum_weight}\n"
+                              f"contact_force_symmetry_weight {m.force_symmetry_weight}\n\n{contact(0)}\n{contact(1)}",
+        "mann.ini": f"sampling_time {g.dt}\ntime_horizon {g.time_horizon}\npast_projected_base_horizon "
+                    f"{g.past_horizon}\nslow_down_factor {g.slow_down_factor}\nbase_vel_norm {ib.base_vel_norm}\n"
+                    f"ellipsoid_forward_axis {ib.ellipsoid_forward_axis}\nellipsoid_side_axis "
+                    f"{ib.ellipsoid_side_axis}\nellipsoid_backward_axis {ib.ellipsoid_backward_axis}\n"
+                    f"ellipsoid_scaling_factor {ib.ellipsoid_scaling_factor}\nmax_facing_direction_angle_forward "
+                    f"{ib.max_facing_angle_forward}\nmax_facing_direction_angle_backward "
+                    f"{ib.max_facing_angle_backward}\nmax_facing_direction_angle_side_opposite_sign "
+                    f"{ib.max_facing_angle_side_opposite_sign}\nmax_facing_direction_angle_side_same_sign "
+                    f"{ib.max_facing_angle_side_same_sign}\nnumber_of_knots {ib.number_of_knots}\n\n[LEFT_FOOT]\n"
+                    f"on_threshold {g.on_threshold}\noff_threshold {g.off_threshold}\nswitch_on_after "
+                    f"{g.switch_on_after}\nswitch_off_after {g.switch_off_after}\n",
+        "swing_foot_planner.ini": f"step_height {cfg.swing.step_height}\nfoot_apex_time {cfg.swing.foot_apex_time}\n"
+                                  f"foot_landing_velocity {cfg.swing.landing_velocity}\nfoot_landing_acceleration "
+                                  f"{cfg.swing.landing_acceleration}\n",
+        "ik.ini": f"[LEFT_FOOT]\nkp_linear {cfg.ik.kp_foot_lin}\nkp_angular {cfg.ik.kp_foot_ang}\n\n[COM]\nkp_linear "
+                  f"{cfg.ik.kp_com}\n\n[ROOT_TASK]\nkp_linear {cfg.ik.kp_root}\n\n[CHEST]\nkp_angular "
+                  f"{cfg.ik.kp_chest}\nframe_name \"{cfg.ik.chest_frame}\"\nweight {tup(cfg.ik.chest_weight)}\n\n"
+                  f"[JOINT_REGULARIZATION]\nkp {tup(kp) if isinstance(kp, tuple) else kp}\nweight "
+                  f"{tup(cfg.ik.posture_weight)}\n",
+        "legged_odometry.ini": "".join(
+            ["[ModelInfo]\n"] + [f"{k} \"{getattr(cfg.odom, k)}\"\n" for k in
+                                ("base_link", "base_link_imu", "left_foot_contact_frame", "right_foot_contact_frame")]
+            + ["\n[LeggedOdom]\n"] + [f"{k} \"{getattr(cfg.odom, k)}\"\n" for k in
+                                      ("initial_fixed_frame", "switching_pattern")]),
+    }
+    robot = os.path.join(directory, "robot")
+    os.makedirs(robot, exist_ok=True)
+    for name, text in files.items():
+        with open(os.path.join(robot, name), "w") as f:
+            f.write(text)
+    return robot
+
+
+def phase_remaining(tag, cfg_dense):
+    """Phase 12: the bf16 KKT option of the dense branch, the parity CLI, the
+    walk CLI on a written robot directory, a headless real-time walker,
+    `entry()`, `dryrun_multichip(1)` and the scaling CLI. Returns the
+    launches of the bf16 runs."""
+    from cmw_tpu_torch import entry as E
+    from cmw_tpu_torch.apps import parity as parity_app
+    from cmw_tpu_torch.apps import scaling as scaling_app
+    from cmw_tpu_torch.apps import walk as walk_app
+    from cmw_tpu_torch.runtime.ini import load_robot_config
+    from cmw_tpu_torch.runtime.realtime import RealtimeWalker
+
+    t_phase = time.perf_counter()
+    # --- the bf16 KKT: the B = 512 x KB = 4 chain and the envelope against f32 -
+    t = time.perf_counter()
+    _, _, s32 = bench_chain(CentroidalMPCSolver(cfg_dense), cfg_dense)
+    env32 = dataclasses.replace(cfg_dense, **BF16_ENVELOPE)
+    params = make_params(env32, lateral(BF16_PUSHES))
+    ref = CentroidalMPCSolver(env32)
+    ref = ref.solve(params, ref.cold_start(len(BF16_PUSHES)))
+    zero_launches()  # the f32 runs above launch K4; the bf16 runs below must not
+    rates = {}
+    for tail in BF16_TAILS:  # bench.py's bf16_kkt_solves_per_s; the chain is not converged: prim_res printed
+        cfg16 = dataclasses.replace(cfg_dense, kkt_dtype="bf16", kkt_f32_tail=tail)
+        _, prims, s16 = bench_chain(CentroidalMPCSolver(cfg16), cfg16, prim_max=None)
+        rates[tail] = (512 * 4 / s16, float(prims.max()))
+    envelope = {}
+    for tail in BF16_TAILS:
+        solver = CentroidalMPCSolver(dataclasses.replace(env32, kkt_dtype="bf16", kkt_f32_tail=tail))
+        sol = solver.solve(params, solver.cold_start(len(BF16_PUSHES)))
+        off, prim = float(((sol.cost - ref.cost) / ref.cost).abs().max()), float(sol.prim_res.max())
+        envelope[tail] = (off, prim)
+        require(prim < BF16_PRIM_MAX and off < BF16_COST_RTOL,
+                f"bf16 tail {tail}: prim_res {prim}, cost offset {off} against f32, outside JAX's envelope")
+    launches = read_launches()
+    require(launches["spd_inverse"] > 0 and launches["symv_packed"] == 0 and launches["admm_fused"] == 0,
+            f"bf16 runs' launches {launches}: K3 must launch, K4 and K5 not")
+    for tail in BF16_TAILS:
+        print(f"phase 12 bf16 KKT tail {tail}: B=512 x KB=4 dense chain {rates[tail][0]:.1f} solves/s "
+              f"(bf16_kkt_solves_per_s; f32 dense {512 * 4 / s32:.1f}), chain max prim {rates[tail][1]:.2e}; "
+              f"B={len(BF16_PUSHES)} converged solves (sqp 6 x admm 80) against f32: max cost offset "
+              f"{envelope[tail][0]:.2e}, max prim {envelope[tail][1]:.2e} (limits {BF16_COST_RTOL}, "
+              f"{BF16_PRIM_MAX}) {tag}")
+    print(f"phase 12 bf16 KKT launches {launches} ({time.perf_counter() - t:.1f} s)")
+
+    # --- the parity CLI on the card ------------------------------------------------
+    t = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        out = parity_app.main([])
+    require(out["parity_ok"], f"parity CLI: {out}")
+    print(f"phase 12 parity CLI (apps.parity.main([]), solve on the card, SLSQP oracle in processes beside it): "
+          f"parity_ok {out['parity_ok']}; " + "; ".join(
+              f"{c['case']} ratio {c['ratio']} (cost {c['jax_cost']} vs {c['oracle_cost']}, prim {c['prim_res']:.2e})"
+              for c in out["cases"]) + f" ({time.perf_counter() - t:.1f} s) {tag}")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        mann = write_mann(tmp)
+        # --- the walk CLI on a written robot directory ---------------------------------
+        t = time.perf_counter()
+        cfg = ergocub_gazebo_v1()
+        robot = write_robot_dir(tmp, cfg)
+        loaded = load_robot_config(robot)
+        require(loaded == cfg, "the written robot directory does not load to ergocub_gazebo_v1()")
+        with contextlib.redirect_stdout(io.StringIO()):
+            summary = walk_app.main(["--robot-dir", robot, "--mann", mann, "--seconds", str(ROBOT_DIR_SECONDS),
+                                     "--out", os.path.join(tmp, "walk.npz")])
+        chans, _ = RT.load(os.path.join(tmp, "walk.npz"))
+        ticks = round(ROBOT_DIR_SECONDS / cfg.wbc_dt)
+        require(summary["finite"] and chans["com_mpc"].shape == (ticks, 3)
+                and all(np.isfinite(v).all() for v in chans.values()), f"walk --robot-dir: {summary}")
+        print(f"phase 12 walk CLI --robot-dir (a written ergoCubGazeboV1 directory), {ticks} ticks: finite, "
+              f"{summary['wall_seconds']} s, com travel {summary['com_travel_xy']}, mpc_prim max "
+              f"{summary['mpc_prim_max']:.2e} ({time.perf_counter() - t:.1f} s) {tag}")
+
+        # --- the headless real-time walker ---------------------------------------------
+        t = time.perf_counter()
+        ctl = RL.WalkingController(cfg, kin.ergocub_approx(), N.load_mann_weights(mann))
+        rw = RealtimeWalker(ctl, time_scale=WALKER_SCALE)
+        rw.set_joypad(*WALKER_JOYPADS[0])
+        change = threading.Timer(WALKER_SECONDS / 2, rw.set_joypad, WALKER_JOYPADS[1])
+        change.start()
+        try:
+            stats = rw.run(duration_s=WALKER_SECONDS)
+        finally:
+            change.cancel()
+        require(not stats["failed"] and stats["ticks"] > 0 and stats.get("finite", False)
+                and bool(torch.isfinite(rw.state.q).all()), f"real-time walker: {stats}")
+        print(f"phase 12 RealtimeWalker {WALKER_SECONDS} s headless at time scale {WALKER_SCALE} (MPC period "
+              f"{cfg.mpc.dt / WALKER_SCALE:.2f} s, WBC {cfg.wbc_dt / WALKER_SCALE:.3f} s), stick "
+              f"{WALKER_JOYPADS[0]} then {WALKER_JOYPADS[1]} mid-run: ticks {stats['ticks']}, sim time "
+              f"{stats['sim_time']:.3f} s, MPC task {stats['mpc']}, WBC task {stats['wbc']}, com {stats['com_final']}, "
+              f"slewed stick {[round(v, 3) for v in rw.state.joypad_lp[0].tolist()]} "
+              f"({time.perf_counter() - t:.1f} s) {tag}")
+        del rw, ctl
+
+        # --- entry(), dryrun_multichip(1), the scaling CLI -----------------------------
+        t = time.perf_counter()
+        fn, args = E.entry()
+        sol = fn(*args)
+        require(bool(torch.isfinite(sol.cost).all()) and float(sol.prim_res[0]) < 1e-2, "entry(): solve")
+        dry = E.dryrun_multichip(1, mann=mann)
+        require(math.isfinite(dry["mean_cost"]) and dry["com_max"] < 10.0, f"dryrun_multichip: {dry}")
+        printed = io.StringIO()
+        with contextlib.redirect_stdout(printed):
+            rows = scaling_app.main(["--devices", "1"])
+        require(rows[0]["solves_per_s"] > 0, f"scaling: {rows}")
+        print(f"phase 12 entry(): cost {float(sol.cost[0]):.4f}, prim {float(sol.prim_res[0]):.2e}; "
+              f"dryrun_multichip(1) (NCCL, one rank): mean cost {dry['mean_cost']:.3f}, max|com| "
+              f"{dry['com_max']:.3f}; scaling N=1: {rows[0]['solves_per_s']} solves/s at batch {rows[0]['batch']} "
+              f"({time.perf_counter() - t:.1f} s) {tag}")
+    print(f"phase 12 took {time.perf_counter() - t_phase:.1f} s")
     return launches
 
 
@@ -1998,6 +2197,9 @@ def main():
     # --- 11. the push-recovery sweep and the walk through their CLIs ---------
     l_sweep = phase_sweep(tag)
 
+    # --- 12. the remaining entry points ---------------------------------------
+    l_rest = phase_remaining(tag, cfg_dense)
+
     sources = {"spd_inverse": ("cmw_tpu_torch/csrc/spd_inverse.cu", "cmw_tpu/ops/spd_inverse.py:132"),
                "symv_packed": ("cmw_tpu_torch/csrc/symv.cu", "cmw_tpu/ops/symv.py:77"),
                "admm_fused": ("cmw_tpu_torch/csrc/admm_fused.cu", "cmw_tpu/ops/admm_fused.py:143")}
@@ -2007,7 +2209,8 @@ def main():
         b_ms, b_by, _, _ = bounds[(name, B512)]
         record["kernels"].append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": l_dense[name] + l_fused[name] + l_mann[name] + l_closed[name] + l_rigid[name] + l_sweep[name],
+            "launches": (l_dense[name] + l_fused[name] + l_mann[name] + l_closed[name] + l_rigid[name] + l_sweep[name]
+                         + l_rest[name]),
             "max_abs_err": errs[name],
             "ms": ms, "plain_ms": plain,
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib,

@@ -3,7 +3,16 @@
 Runs the MANN -> CentroidalMPC -> WBC loop on the card for a scripted
 joystick schedule and writes telemetry (npz). `--joystick` segments
 "t0:mx,my,fx,fy" change the command at time t0. The counterpart of
-`python -m cmw_tpu.apps.walk`, with the same flags.
+`python -m cmw_tpu.apps.walk`, with the same flags; `--robot-dir` reads a
+reference-style ini config directory (`runtime/ini.py`), `--interactive`
+drives the walker with the terminal joypad on the native real-time scheduler
+(`runtime/realtime.py`).
+
+The walk is one robot (B = 1), so its telemetry file has JAX's layout:
+channels [S, ...] and JAX's metadata keys, which JAX's readers take. The
+state checkpoints (`--save-state`, `--resume-state`) keep the port's own
+format (`runtime/checkpoint.py`): the two packages' state trees differ, so
+neither reads the other's.
 
 Example:
   python -m cmw_tpu_torch.apps.walk --seconds 4 --mann mann4.onnx --joystick 0:1,0,1,0 2:0,1,1,0
@@ -18,11 +27,14 @@ import time
 import numpy as np
 import torch
 
+from cmw_tpu_torch.apps.joypad import TerminalJoypad
 from cmw_tpu_torch.core import kinematics as kin
 from cmw_tpu_torch.mann.network import load_mann_weights
 from cmw_tpu_torch.runtime import checkpoint, telemetry
 from cmw_tpu_torch.runtime.config import ergocub_gazebo_v1, ergocub_sn000
+from cmw_tpu_torch.runtime.ini import load_robot_config
 from cmw_tpu_torch.runtime.loop import TickInput, WalkingController
+from cmw_tpu_torch.runtime.realtime import RealtimeWalker
 
 
 def main(argv=None):
@@ -63,18 +75,32 @@ def main(argv=None):
     p.add_argument("--resume-state", default=None, help="resume from a loop-state checkpoint")
     args = p.parse_args(argv)
 
-    if args.robot_dir:
-        raise NotImplementedError("--robot-dir needs runtime/ini.py, not ported yet (ROADMAP queue 1)")
-    if args.interactive:
-        raise NotImplementedError("--interactive needs runtime/realtime.py, runtime/native.py and apps/joypad.py, "
-                                  "not ported yet (ROADMAP queue 1)")
     dev = "cpu" if args.cpu else "cuda"
-    cfg = ergocub_gazebo_v1() if args.robot == "ergoCubGazeboV1" else ergocub_sn000()
+    if args.robot_dir:
+        cfg = load_robot_config(args.robot_dir)
+    else:
+        cfg = ergocub_gazebo_v1() if args.robot == "ergoCubGazeboV1" else ergocub_sn000()
     if args.urdf:
         model = kin.ergocub_urdf(None if args.urdf == "builtin" else args.urdf)
     else:
         model = kin.ergocub_approx()
     ctl = WalkingController(cfg, model, load_mann_weights(args.mann, device=dev), device=dev)
+
+    if args.interactive:
+        rw = RealtimeWalker(ctl, time_scale=args.time_scale)
+        if args.resume_state:
+            rw.state = checkpoint.load(args.resume_state, rw.state)
+        jp = TerminalJoypad(rw.set_joypad)
+        jp.start()
+        print("interactive walk: w/s fwd/back, a/d left/right, q/e yaw, space stop, x quit (Ctrl-C to end)", flush=True)
+        try:
+            stats = rw.run(args.seconds / args.time_scale, install_signals=True)
+        finally:
+            jp.stop()
+        if args.save_state:
+            checkpoint.save(args.save_state, rw.state, meta={"t": float(rw.state.t[0])})
+        print(json.dumps(stats))
+        return stats
 
     S = int(round(args.seconds / cfg.wbc_dt))
     joy = np.zeros((S, 4), np.float32)
@@ -100,7 +126,7 @@ def main(argv=None):
     if args.save_state:
         checkpoint.save(args.save_state, sN, meta={"t": float(sN.t[0])})
 
-    telemetry.save(args.out, tel, cfg.wbc_dt, extra={"robot": args.robot})
+    telemetry.save(args.out, tel, cfg.wbc_dt, extra={"robot": args.robot}, item=0)
     summary = {
         "ticks": S,
         "sim_seconds": args.seconds,
@@ -113,6 +139,7 @@ def main(argv=None):
         "telemetry": args.out,
     }
     print(json.dumps(summary))
+    return summary
 
 
 if __name__ == "__main__":

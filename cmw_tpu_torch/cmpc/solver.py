@@ -23,10 +23,21 @@ solve runs eagerly:
 Profiler spans `mpc.factor`, `mpc.linearize`, `mpc.admm` and
 `mpc.line_search` mark the phases for `torch.profiler`.
 
-Unknown option strings raise ValueError. `kkt_dtype` other than "f32"
-raises NotImplementedError on the dense branch; the Riccati branch ignores
-`admm_impl` and `kkt_dtype`, as in JAX. `admm_impl="auto"` is the batched
-loop ("xla"), as in JAX.
+Unknown option strings raise ValueError. The Riccati branch ignores
+`admm_impl` and `kkt_dtype`, as in JAX, and so does the fused ADMM kernel.
+`admm_impl="auto"` is the batched loop ("xla"), as in JAX. On the dense
+branch's batched loop `kkt_dtype` picks the x-update's precision:
+  - "f32": minv in the working dtype (the packed symv kernel where
+    `xupdate_impl` asks for it);
+  - "bf16": the first admm_iters - min(kkt_f32_tail, admm_iters) iterations
+    multiply minv rounded to bf16 by rhs rounded to bf16, accumulating in the
+    working dtype (JAX's dot_general with preferred_element_type), then the
+    tail runs in the working dtype on the same state, the dense minv on both
+    (no packed symv, as in JAX);
+  - "auto": "f32" on every device. JAX resolves it to bf16 on a TPU and to
+    f32 elsewhere, so off a TPU the two agree; the port's "auto" keeps the
+    packed symv kernel, where JAX switches the packed symv off for any value
+    but a literal "f32".
 """
 
 from __future__ import annotations
@@ -93,8 +104,7 @@ class CentroidalMPCSolver:
         self.cfg = cfg
         self.use_riccati = cfg.kkt_impl in ("auto", "riccati")
         self.use_fused = not self.use_riccati and cfg.admm_impl == "fused"
-        if not self.use_riccati and cfg.kkt_dtype != "f32":
-            raise NotImplementedError("only kkt_dtype='f32' is supported: the bf16 KKT is retired")
+        self.kkt_dtype = "f32" if cfg.kkt_dtype == "auto" else cfg.kkt_dtype
 
     # -- warm start -----------------------------------------------------------
 
@@ -196,7 +206,8 @@ class CentroidalMPCSolver:
             xupd = cfg.xupdate_impl
             if xupd == "auto":
                 xupd = "symv" if device.type == "cuda" else "dense"
-            use_symv = xupd == "symv" and not self.use_fused  # the fused kernel takes the dense minv
+            # the fused kernel takes the dense minv; the bf16 x-update the dense one
+            use_symv = xupd == "symv" and not self.use_fused and self.kkt_dtype == "f32"
 
             def res_item(p, zz):
                 return F.residuals(cfg, p, zz)
@@ -223,11 +234,27 @@ class CentroidalMPCSolver:
                     )
                     return ADMMState(x, zc, y), (matvec(x) - zc).abs().amax(dim=-1)
             else:
+                tail = min(cfg.kkt_f32_tail, cfg.admm_iters) if self.kkt_dtype == "bf16" else cfg.admm_iters
+                head = cfg.admm_iters - tail
+
                 def run_admm(kkt, q, z, zc, y):
                     minv, packed = kkt
+                    state = ADMMState(z, zc, y)
+                    if head > 0:
+                        # the exact product of the bf16-rounded operands: a
+                        # matmul of two bf16 tensors would round its result
+                        minv16 = minv.to(torch.bfloat16).to(minv.dtype)
+
+                        def apply_bf16(rhs):
+                            return torch.matmul(minv16, rhs.to(torch.bfloat16).to(rhs.dtype)[..., None])[..., 0]
+
+                        state, _ = admm_solve(
+                            None, q, matvec, rmatvec, l, u, rho, state, iters=head,
+                            sigma=cfg.admm_sigma, alpha=cfg.admm_alpha, apply_fn=apply_bf16,
+                        )
                     return admm_solve(
-                        minv, q, matvec, rmatvec, l, u, rho, ADMMState(z, zc, y),
-                        iters=cfg.admm_iters, sigma=cfg.admm_sigma, alpha=cfg.admm_alpha,
+                        minv, q, matvec, rmatvec, l, u, rho, state,
+                        iters=tail, sigma=cfg.admm_sigma, alpha=cfg.admm_alpha,
                         minv_packed=packed,
                     )
 

@@ -34,6 +34,14 @@ class ContactPlan(NamedTuple):
     rot: torch.Tensor  # [..., nc, P, 3, 3] contact orientation, world
     valid: torch.Tensor  # [..., nc, P] {0., 1.}
 
+    @property
+    def num_contacts(self) -> int:
+        return self.act.shape[-2]
+
+    @property
+    def num_phases(self) -> int:
+        return self.act.shape[-1]
+
 
 def empty_plan(nc: int = 2, P: int = 16, *, device="cuda", dtype=torch.float32) -> ContactPlan:
     eye = torch.eye(3, dtype=dtype, device=device).expand(nc, P, 3, 3).clone()

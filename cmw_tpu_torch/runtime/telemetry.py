@@ -4,7 +4,9 @@ PyTorch counterpart of `cmw_tpu/runtime/telemetry.py` (the reference
 declares the schema once, WholeBodyQPBlock.cpp:655-712, then streams a
 vector per tick). `WalkingController.run_episode` returns `Telemetry` with
 batch-first stacked tensors [B, S, ...]; `save` writes them with the schema
-on the host, `load` reads them back as numpy.
+on the host, `load` reads them back as numpy. With `item`, `save` writes one
+item alone in JAX's layout ([S, ...], JAX's metadata keys), which JAX's
+loader and its readers take as they take the JAX package's files.
 """
 
 from __future__ import annotations
@@ -49,20 +51,19 @@ SCHEMA = {
 }
 
 
-def save(path: str, telemetry, wbc_dt: float, extra: dict | None = None):
-    """Write stacked Telemetry [B, S, ...] and its schema to an npz file.
-    Every channel must be in SCHEMA."""
-    arrays = {k: v.detach().cpu().numpy() for k, v in telemetry._asdict().items()}
+def save(path: str, telemetry, wbc_dt: float, extra: dict | None = None, *, item: int | None = None):
+    """Write stacked Telemetry [B, S, ...] and its schema to an npz file, or
+    with `item` that item's channels [S, ...] in JAX's layout (no `batch`
+    key). Every channel must be in SCHEMA."""
+    arrays = {k: (v if item is None else v[item]).detach().cpu().numpy() for k, v in telemetry._asdict().items()}
     unknown = sorted(set(arrays) - set(SCHEMA))
     if unknown:
         raise ValueError(f"telemetry channels without a schema entry: {unknown}")
     first = next(iter(arrays.values()))
-    meta = {
-        "schema": {k: SCHEMA[k] for k in arrays},
-        "wbc_dt": wbc_dt,
-        "batch": int(first.shape[0]),
-        "ticks": int(first.shape[1]),
-    }
+    meta = {"schema": {k: SCHEMA[k] for k in arrays}, "wbc_dt": wbc_dt}
+    if item is None:
+        meta["batch"] = int(first.shape[0])
+    meta["ticks"] = int(first.shape[0 if item is not None else 1])
     if extra:
         meta.update(extra)
     arrays["_meta_json"] = np.frombuffer(json.dumps(meta).encode(), dtype=np.uint8)
@@ -70,7 +71,8 @@ def save(path: str, telemetry, wbc_dt: float, extra: dict | None = None):
 
 
 def load(path: str):
-    """Returns (dict of channel arrays [B, S, ...], metadata dict)."""
+    """Returns (dict of channel arrays, [B, S, ...] or one item's [S, ...],
+    metadata dict)."""
     with np.load(path) as z:
         meta = json.loads(bytes(z["_meta_json"]).decode())
         chans = {k: z[k] for k in z.files if k != "_meta_json"}

@@ -13,8 +13,11 @@ ergocub_gazebo_v1() expects, written as an ONNX file by
     them;
   - `apps.walk` split by `--save-state` / `--resume-state` ends where the
     straight run ends, bit for bit, and its telemetry loads;
-  - `apps.walk` refuses `--robot-dir` and `--interactive`, which need
-    modules not ported yet."""
+  - `apps.walk`'s telemetry file has JAX's layout ([S, ...] channels, JAX's
+    metadata keys), which JAX's loader reads;
+  - `apps.walk --robot-dir` and `--interactive` run (tests/test_torch_ini.py,
+    tests/test_torch_realtime.py), and like every mode refuse to run without
+    a card unless `--cpu` is given."""
 
 import json
 import os
@@ -33,9 +36,11 @@ from cmw_tpu.core import kinematics as JK
 from cmw_tpu.dist import sweep as JS
 from cmw_tpu.runtime import config as JCfg
 from cmw_tpu.runtime import loop as JL
+from cmw_tpu.runtime import telemetry as JT
 from cmw_tpu_torch.apps import sweep as TApp
 from cmw_tpu_torch.apps import walk as TWalk
 from cmw_tpu_torch.runtime import checkpoint, telemetry
+from test_torch_ini import write_robot
 from test_torch_runtime import jax_weights
 
 torch.set_num_threads(2)
@@ -126,10 +131,35 @@ def test_walk_cli_resumes_bit_for_bit(tmp_path, mann_file):
     assert checkpoint.load_meta(files["c"])["t"] == pytest.approx(0.18)
     for name, ticks in (("ta", 60), ("tb", 30), ("tc", 90)):
         chans, meta = telemetry.load(files[name])
-        assert chans["com_mpc"].shape == (1, ticks, 3) and meta["robot"] == "ergoCubGazeboV1"
+        assert chans["com_mpc"].shape == (ticks, 3) and meta["robot"] == "ergoCubGazeboV1"
+
+
+def test_walk_telemetry_has_jax_layout(tmp_path, mann_file):
+    """The walk's file against what cmw_tpu.runtime.telemetry.save writes for
+    a JAX Telemetry of the same S: the same channels, each [S, ...] (the
+    batch-first episode's item 0), the same metadata keys; JAX's loader reads
+    the port's file as it reads its own."""
+    path, jpath = str(tmp_path / "walk.npz"), str(tmp_path / "jax.npz")
+    TWalk.main(["--cpu", "--mann", mann_file, "--seconds", "0.02", "--out", path])
+    chans, meta = telemetry.load(path)
+    JT.save(jpath, JL.Telemetry(**chans), 0.002, extra={"robot": "ergoCubGazeboV1"})
+    jchans, jmeta = JT.load(jpath)
+    assert list(meta) == list(jmeta) and meta == jmeta
+    assert chans.keys() == jchans.keys() == set(JL.Telemetry._fields)
+    for name, value in chans.items():
+        assert value.shape[0] == 10 and value.shape == jchans[name].shape, name
+    rchans, rmeta = JT.load(path)
+    assert rmeta == jmeta and all(np.array_equal(rchans[k], chans[k]) for k in chans)
 
 
 @pytest.mark.parametrize("flag", [["--robot-dir", "config/robots/ergoCubGazeboV1"], ["--interactive"]])
-def test_walk_cli_refuses_what_is_not_ported(flag):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TWalk.main(["--cpu", "--mann", "absent.onnx"] + flag)
+def test_walk_cli_refuses_what_is_not_ported(flag, tmp_path, mann_file):
+    """Both modes are ported (their tests: tests/test_torch_ini.py,
+    tests/test_torch_realtime.py). What the CLI still refuses is a run
+    without a card and without --cpu: it raises, it does not fall back."""
+    if torch.cuda.is_available():
+        pytest.skip("checks the refusal on a machine without a card")
+    d = write_robot(tmp_path, "current")
+    argv = ["--mann", mann_file] + (["--robot-dir", d] if flag[0] == "--robot-dir" else flag)
+    with pytest.raises((AssertionError, RuntimeError)):
+        TWalk.main(argv)

@@ -142,3 +142,15 @@ def test_write_back_adjusted_matches_jax():
                                    torch.tensor(slot_pos), torch.tensor(slot_valid))
     _same(got, want)
     assert not np.array_equal(got.pos.numpy(), jplan.pos)
+
+
+def test_plan_sizes_match_jax():
+    """ContactPlan.num_contacts / num_phases (cmw_tpu/core/contacts.py:43-49):
+    the last two dims of `act`, for one plan and a batch of them."""
+    jplan = jcon.make_alternating_gait(n_steps=4)
+    tplan = convert.plan_from_numpy(_np(jplan), device="cpu")
+    assert (tplan.num_contacts, tplan.num_phases) == (jplan.num_contacts, jplan.num_phases) == (2, 16)
+    jbatch = _plans(0)
+    tbatch = convert.plan_from_numpy(jbatch, device="cpu")
+    assert (tbatch.num_contacts, tbatch.num_phases) == (jplan.num_contacts, jplan.num_phases)
+    assert tcon.empty_plan(3, 8, device="cpu").num_phases == jcon.empty_plan(3, 8).num_phases == 8

@@ -1,8 +1,12 @@
 """The port runs without JAX: importing `cmw_tpu_torch` (and `chip_smoke.py`),
 running a solve, a MANN rollout, a few ticks of the walking controller, a
-step of the rigid-body plant, a push sweep at B = 2 over one MPC period and
-a checkpoint round trip, and importing the command-line entry points, loads
-neither `jax` nor the JAX package `cmw_tpu`."""
+step of the rigid-body plant, a push sweep at B = 2 over one MPC period, a
+checkpoint round trip, importing the command-line entry points, the ini
+loader, the oracle copies (the MPC's, the MANN generator's and its ONNX
+interpreter's), the parity CLI at a short horizon, the real-time walker's
+two tasks, the native runtime, the joypad, `entry()` and one scaling
+measurement on one gloo rank, loads neither `jax` nor the JAX package
+`cmw_tpu`."""
 
 import os
 import subprocess
@@ -71,6 +75,30 @@ with tempfile.TemporaryDirectory() as tmp:
     checkpoint.save(path, s, meta={"t": float(s.t[0])})
     back = checkpoint.load(path, ctl.initial_state(1))
 assert back.rb is None and torch.equal(back.q, s.q) and int(back.tick[0]) == 3
+from cmw_tpu_torch import entry
+from cmw_tpu_torch.apps import joypad, parity, scaling
+from cmw_tpu_torch.cmpc import oracle
+from cmw_tpu_torch.mann import gen_oracle, onnx_ref
+from cmw_tpu_torch.runtime import ini, native, realtime
+
+with tempfile.TemporaryDirectory() as tmp:
+    path = os.path.join(tmp, "a.ini")
+    with open(path, "w") as f:
+        f.write("x (1, 2)\n[G]\ny 3\n")
+    assert ini.parse_ini(path) == {"x": (1, 2), "G": {"y": 3}}
+    assert ini.load_ik_config(os.path.join(tmp, "absent.ini")) == ini.IKConfig()
+p1 = type(params)(*[a[0] for a in params[:3]], type(stage)(*[a[0] for a in params.stage]), params.ext_force[0],
+                  params.ext_torque[0])
+assert oracle.cost_np(cfg, p1, sol.z[0].double().numpy()) > 0.0
+out = parity.main(["--cpu", "--horizon", "0.12", "--sqp-iters", "1", "--admm-iters", "2"])
+assert [c["case"] for c in out["cases"]] == ["standing_offset", "walking", "walking_push"]
+rw = realtime.RealtimeWalker(ctl)
+rw.set_joypad(0.5, 0.0)
+assert rw._mpc_task(0.0) and rw._wbc_task(0.0) and rw.errors == [] and rw._tick_input().joypad[0, 0] == 0.5
+assert native.Mailbox().read() == (0, b"") and joypad.TerminalJoypad(lambda *a: None).handle_key("w")
+fn, args = entry.entry(device="cpu")
+assert bool(torch.isfinite(fn(*args).cost).all())
+assert scaling.measure(1, 1, 1, 1, device="cpu") > 0
 loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "cmw_tpu"))
 print("LOADED", loaded)
 assert not loaded, loaded

@@ -35,6 +35,13 @@ PRIM_MAX = 1e-2
 FORCE_ATOL = 1e-3
 POS_ATOL = 1e-4
 PUSHES = ((0.0, 1.0, 0.0), (0.0, -1.0, 0.0))
+# JAX's envelope of the bf16 KKT against f32 on converged solves
+# (tests/test_cmpc.py:211-235): prim_res < 5e-2, cost within 8 %
+BF16_PRIM_MAX = 5e-2
+BF16_COST_RTOL = 0.08
+# the port's bf16 solve against JAX's in f64, where both round the same
+# values to bf16: the two packages' sums differ only in f64 ulps
+BF16_F64_TOL = 1e-9
 
 CASES = {
     "dense": dict(kkt_impl="dense", inverse_impl="xla"),
@@ -136,8 +143,13 @@ def test_unknown_and_unported_options_raise():
         with pytest.raises(ValueError, match=field):
             CentroidalMPCSolver(ergocub_mpc_config(**{field: "nonsense"}))
     assert CentroidalMPCSolver(ergocub_mpc_config(kkt_impl="dense", admm_impl="fused")).use_fused
-    with pytest.raises(NotImplementedError):
-        CentroidalMPCSolver(ergocub_mpc_config(kkt_impl="dense", kkt_dtype="bf16"))
+    # every kkt_dtype JAX runs is run on the dense branch ("auto" is "f32", as in JAX off a TPU)
+    _, tp = batch(JF.ergocub_mpc_config(horizon=0.6), 1.02, pushes=((0.0, 1.2, 0.0),))
+    for kkt_dtype, resolved in (("auto", "f32"), ("f32", "f32"), ("bf16", "bf16")):
+        solver = CentroidalMPCSolver(ergocub_mpc_config(horizon=0.6, kkt_impl="dense", kkt_dtype=kkt_dtype))
+        assert solver.kkt_dtype == resolved
+        sol = solver.solve(tp, solver.cold_start(1, device="cpu"))
+        assert bool(torch.isfinite(sol.z).all()) and float(sol.prim_res[0]) < BF16_PRIM_MAX
     # the Riccati branch ignores the dense-path knobs, as in JAX
     assert not CentroidalMPCSolver(ergocub_mpc_config(admm_impl="fused", kkt_dtype="bf16")).use_fused
 
@@ -174,3 +186,83 @@ def test_entry_points_default_to_the_card():
         else:
             with pytest.raises((AssertionError, RuntimeError)):  # torch: "not compiled with CUDA" / no device
                 call()
+
+
+BF16_CFG = dict(sqp_iters=6, admm_iters=80, refactor_every_sqp=True, kkt_impl="dense", inverse_impl="xla")
+
+
+def bf16_params(cfg, push, dtype):
+    """tests/test_cmpc.py:211-235's problem: the 6-step gait at t0 = 0.66,
+    standing at 0.7 m, with and without the lateral push 1.2."""
+    plan = jcontacts.snap_to_grid(jcontacts.make_alternating_gait(n_steps=6), cfg.dt)
+    stage = jcontacts.mpc_stage_params(plan, 0.66, cfg.T, cfg.dt, cfg.n_slots)
+    com0 = np.array([0.0, 0.0, 0.7])
+    params = JF.MPCParams(
+        x0=np.concatenate([com0, np.zeros(6)]), com_ref=np.broadcast_to(com0, (cfg.N, 3)),
+        ang_mom_ref=np.zeros((cfg.N, 3)), stage=jax.tree_util.tree_map(np.asarray, stage),
+        ext_force=np.zeros(3) if push is None else np.asarray(push), ext_torque=np.zeros(3),
+    )
+    return jax.tree_util.tree_map(lambda a: np.asarray(a, dtype) if np.asarray(a).dtype.kind == "f" else a, params)
+
+
+@pytest.mark.parametrize("tail", [0, 8])
+def test_bf16_kkt_matches_jax_in_f64(tail):
+    """kkt_dtype="bf16" on the dense branch, kkt_f32_tail 0 and 8, against
+    JAX's dense bf16 solve on the same problems in f64 (JAX's own test at
+    tests/test_cmpc.py:211 runs the default Riccati branch, which ignores
+    kkt_dtype). In f64 both packages round the same values to bf16, so the
+    solves agree to f64 ulps (BF16_F64_TOL). In f32 they cannot be held to
+    each other: the rounding to bf16 is chaotic there, and JAX against itself
+    with x0 scaled by 1 + 1e-7 moves the cost by up to 1.8 % and the forces
+    by up to 5.8e-2 on these problems (printed by
+    test_bf16_kkt_within_jax_envelope)."""
+    jcfg = JF.ergocub_mpc_config(**BF16_CFG, kkt_dtype="bf16", kkt_f32_tail=tail)
+    tcfg = convert.config_from_dict(dataclasses.asdict(jcfg))
+    js, ts = JaxSolver(jcfg), CentroidalMPCSolver(tcfg)
+    for push in (None, (0.0, 1.2, 0.0)):
+        p = bf16_params(jcfg, push, np.float64)
+        with jax.enable_x64(True):
+            warm = jax.tree_util.tree_map(lambda a: jnp.asarray(a, jnp.float64), js.cold_start())
+            want = jax.tree_util.tree_map(np.asarray, jax.jit(js.solve)(jax.tree_util.tree_map(jnp.asarray, p), warm))
+        tp = convert.params_from_numpy(jax.tree_util.tree_map(lambda a: a[None], p), device="cpu", dtype=torch.float64)
+        got = convert.solution_to_numpy(ts.solve(tp, ts.cold_start(1, device="cpu", dtype=torch.float64)))
+        for name in ("cost", "prim_res", "forces", "positions", "z"):
+            np.testing.assert_allclose(got[name][0], want._asdict()[name], rtol=BF16_F64_TOL, atol=BF16_F64_TOL,
+                                       err_msg=f"push {push} {name}")
+
+
+@pytest.mark.parametrize("tail", [0, 8])
+def test_bf16_kkt_within_jax_envelope(tail, capsys):
+    """The port's f32 bf16 solve within JAX's envelope (prim_res < 5e-2,
+    cost within 8 %) of both packages' f32 solves of the same problems.
+    Printed beside it: the port's bf16 solve against JAX's, JAX's against
+    itself with x0 scaled by 1 + 1e-7 (the spread of the bf16 rounding in
+    f32), and JAX's own bf16 cost offset from its f32 cost."""
+    jcfg32 = JF.ergocub_mpc_config(**BF16_CFG)
+    jcfg16 = dataclasses.replace(jcfg32, kkt_dtype="bf16", kkt_f32_tail=tail)
+    j32, j16 = JaxSolver(jcfg32), JaxSolver(jcfg16)
+    jsolve32, jsolve16 = jax.jit(j32.solve), jax.jit(j16.solve)
+    cfg32 = convert.config_from_dict(dataclasses.asdict(jcfg32))
+    s32, s16 = CentroidalMPCSolver(cfg32), CentroidalMPCSolver(dataclasses.replace(cfg32, kkt_dtype="bf16",
+                                                                                  kkt_f32_tail=tail))
+    for push in (None, (0.0, 1.2, 0.0)):
+        p = bf16_params(jcfg32, push, np.float32)
+        jp = jax.tree_util.tree_map(jnp.asarray, p)
+        want32 = float(jsolve32(jp, j32.cold_start()).cost)
+        want16 = jsolve16(jp, j16.cold_start())
+        bumped = jsolve16(jp._replace(x0=jp.x0 * (1.0 + 1e-7)), j16.cold_start())
+        tp = convert.params_from_numpy(jax.tree_util.tree_map(lambda a: a[None], p), device="cpu")
+        sol32 = s32.solve(tp, s32.cold_start(1, device="cpu"))
+        sol16 = s16.solve(tp, s16.cold_start(1, device="cpu"))
+        cost16 = float(sol16.cost[0])
+        with capsys.disabled():
+            print(f"\nbf16 tail {tail} push {push}: cost offset from f32 port {cost16 / float(sol32.cost[0]) - 1:.3e} "
+                  f"JAX {float(want16.cost) / want32 - 1:.3e}; |dcost| / cost port vs JAX "
+                  f"{abs(cost16 - float(want16.cost)) / float(want16.cost):.3e}, JAX vs JAX bumped "
+                  f"{abs(float(bumped.cost) - float(want16.cost)) / float(want16.cost):.3e}; max |dforces| port vs JAX "
+                  f"{float(np.abs(sol16.forces[0].numpy() - np.asarray(want16.forces)).max()):.3e}, JAX vs JAX bumped "
+                  f"{float(np.abs(np.asarray(bumped.forces) - np.asarray(want16.forces)).max()):.3e}; prim port "
+                  f"{float(sol16.prim_res[0]):.3e} JAX {float(want16.prim_res):.3e}")
+        assert float(sol16.prim_res[0]) < BF16_PRIM_MAX
+        for ref in (float(sol32.cost[0]), want32):
+            assert abs(cost16 - ref) < BF16_COST_RTOL * ref
