@@ -9,7 +9,9 @@ rows, sqp 2 x admm 24) on the card, through the same entry points a user
 calls, alone and fed by the MANN trajectory generator, and checks it:
 
   1. the card's name and power limit; the kernels' build from csrc/*.cu (one
-     nvcc per source, all started together);
+     nvcc per source, all started together); a probe of whether
+     torch.profiler records the card's work (every profile of phases 7-10
+     reads "not measured" where it records none);
   2. each hand-written kernel against its plain PyTorch twin on the card:
      the SPD inverse (||I - M X||_inf < 1e-4 and agreement with the twin
      within INV_RTOL max|X| on real walking KKT matrices, on a badly scaled
@@ -32,8 +34,9 @@ calls, alone and fed by the MANN trajectory generator, and checks it:
      launches on the same inputs bitwise equal;
   3. the dense-KKT main path with the batched ADMM loop (K3, K4): a cold
      solve and 10 warm-started receding-horizon ticks at B = 1, the
-     lateral-push footstep check, then the bench shape (B = 512 pushes,
-     KB = 4 warm-started solves); both kernels' launch counts must rise;
+     lateral-push footstep check, then the bench shape (`apps.bench`'s
+     parameters and chain: B = 512 pushes, KB = 4 warm-started solves); both
+     kernels' launch counts must rise;
   4. the dense-KKT main path with the fused ADMM kernel (K3, K5,
      admm_impl="fused"): the same chains; K5 must launch exactly sqp_iters
      times per solve and K4 never;
@@ -53,18 +56,20 @@ calls, alone and fed by the MANN trajectory generator, and checks it:
      its kernels, and the device time of torch.matmul on the unpacked matrix
      beside K4's; K5's launch at each horizon and how many of its clusters
      the card runs at once; each
-     path's B = 1 warm tick and B = 512 x KB = 4 rate;
+     path's B = 1 warm tick (its B = 512 x KB = 4 rate is phase 13's);
   8. joystick -> MANN -> MPC, the MPC stage of the walking controller
-     (cmw_tpu/runtime/loop.py:508-1053 on the kinematic plant, composed here
-     by `mpc_tick` from the port's modules) on the checked-in ergoCub URDF,
+     (`WalkingController._mpc_stage` on the kinematic plant, from
+     `initial_state` at the walk-ready pose) on the checked-in ergoCub URDF,
      with SYNTHETIC MANN weights at the published mann4 shapes (numpy seed;
      the shipped ONNX weights are not in the repository): the 40-step
      generator at B = 1 and B = 256 on the card against the port on the CPU
      in f64 (contact flags identical, every channel within GEN_TOL); one MPC
      tick at B = 256 on the fused (K3, K5) and the Riccati path, held against
-     each other and against the port's CPU solve within the sentinel, then
-     RECEDING_TICKS receding fused ticks at B = 1, each re-rooting the generator
-     mann_advance knots in; K3 and K5 must launch in the phase (K5 sqp_iters
+     each other and against the port's CPU stage in f64 on 4 items within the
+     sentinel, then RECEDING_TICKS receding fused stages at B = 1, each
+     re-rooting the generator mann_advance knots in (`coast` carries the
+     MPC's plant one period on between them, as the WBC ticks would); K3 and
+     K5 must launch in the phase (K5 sqp_iters
      times per fused solve); printed: the generator's wall per call at
      B = 1 and B = 256, one profiled generator call (device time, kernels,
      idle share) and the B = 1 tick's p50;
@@ -93,7 +98,8 @@ calls, alone and fed by the MANN trajectory generator, and checks it:
      mpc_prim < 1e-2 and every channel finite; K5 must launch sqp_iters
      times per MPC tick and a rigid WBC tick must not wait for the card;
      printed: the settle's wall, the rigid WBC tick's wall at B = 1 and 256,
-     its launches, and one profiled B = 256 MPC period by span;
+     its launches, and one profiled B = 256 rigid WBC tick by span (the MPC
+     stage's spans are phase 9's);
  11. the push-recovery sweep and the walk through their command lines: a
      512-scenario sweep by `cmw_tpu_torch.apps.sweep.main` (SWEEP_ARGS: two
      chunks of 256, 0.6 s, the dense MPC, the kinematic plant, the synthetic
@@ -118,7 +124,15 @@ calls, alone and fed by the MANN trajectory generator, and checks it:
      headless `RealtimeWalker` on the native scheduler for WALKER_SECONDS
      with the stick changed mid-run (no failure, ticks, finite; both tasks'
      stats and deadline misses printed); `entry()`, `dryrun_multichip(1)`
-     (NCCL, one rank) and `apps.scaling.main(["--devices", "1"])`.
+     (NCCL, one rank) and `apps.scaling.main(["--devices", "1"])`;
+ 13. the benchmark entry points at B = 512, stdout captured: `apps.bench.main
+     (["--full", ...])` printing exactly one line with bench.py's keys
+     (BENCH_KEYS), numerics_ok true, a finite positive value, mfu_est and
+     hbm_bw_util_est in (0, 1.05], its extras file printed;
+     `apps.bench_kkt` both and fused; `apps.breakdown`; each call's launches
+     held exactly (the Riccati headline none, dense K3 once and K4
+     sqp x admm times a solve, fused K5 sqp times a solve and K4 never).
+     BENCH_REPS and BENCH_SAMPLES cut the CLIs' repetitions for time.
 
 It imports nothing of JAX. Without a CUDA device it fails. The last two
 lines are the kernels' JSON record and {"ok": true, "device": {...}}.
@@ -138,20 +152,18 @@ import tempfile
 import threading
 import time
 import warnings
-from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from cmw_tpu_torch import convert
-from cmw_tpu_torch.cmpc import CentroidalMPCSolver, MPCParams, ergocub_mpc_config
+from cmw_tpu_torch.apps import bench as BENCH
+from cmw_tpu_torch.cmpc import CentroidalMPCSolver, ergocub_mpc_config
 from cmw_tpu_torch.cmpc import formulation as F
-from cmw_tpu_torch.cmpc.solver import WarmStart
 from cmw_tpu_torch.core import contacts
 from cmw_tpu_torch.core import kinematics as kin
-from cmw_tpu_torch.core import lie
-from cmw_tpu_torch.core.centroidal import pack_state
-from cmw_tpu_torch.core.splines import linear_spline
+from cmw_tpu_torch.core.centroidal import centroidal_dynamics
+from cmw_tpu_torch.core.integrators import rk4_step
 from cmw_tpu_torch.dist import sweep as DS
 from cmw_tpu_torch.dist.sweep import items_of
 from cmw_tpu_torch.mann import generator as G
@@ -159,6 +171,7 @@ from cmw_tpu_torch.mann import input_builder as IB
 from cmw_tpu_torch.mann import network as N
 from cmw_tpu_torch.ops import _build
 from cmw_tpu_torch.ops import admm_fused as K5
+from cmw_tpu_torch.ops import roofline as R
 from cmw_tpu_torch.ops import spd_inverse as K3
 from cmw_tpu_torch.ops import symv as K4
 from cmw_tpu_torch.runtime import checkpoint
@@ -167,7 +180,6 @@ from cmw_tpu_torch.runtime import telemetry as RT
 from cmw_tpu_torch.runtime.config import ergocub_gazebo_v1
 from cmw_tpu_torch.sim import rigid_body as RB
 
-T0 = 1.02  # left foot swinging: its next footstep is adjustable
 RESID_TOL = 1e-4  # ||I - M X||_inf, the inverse's done-check
 INV_RTOL = 1e-4  # kernel vs twin, atol INV_RTOL * max|X| (tests/test_torch_ops.py)
 K3_SIZES = (1, 24, 33, 100, 504)  # one tile, full + 1-wide, ragged 4-wide last tile, production n
@@ -181,6 +193,7 @@ SYMV_RTOL, SYMV_ATOL = 2e-5, 1e-4  # f32 sums in another order (tests/test_ops.p
 # side (n = 512 is the main path's), and nb = 9 past the old cap of 8
 K4_SHAPES = tuple((B, nb) for B in (1, 512) for nb in (1, 2, 4)) + ((3, 9),)
 ADMM_ITERS = 24  # the production admm_iters
+WARM_TICKS = 12  # phase 7's timed B = 1 warm ticks a path, after a cold one (cut from 20 for the script's time)
 # horizons (T at dt = 0.06) past the production T = 20 whose sizes take K5's
 # other launches: 16 blocks a cluster (T = 22), one block per scenario with the
 # lists (T = 33) and without them, every scenario on the dense branch (T = 60)
@@ -202,10 +215,6 @@ K5_SHORT_ITERS = 4
 # of 3.6e-2 or more. So the median tells the modes apart and the largest only
 # bounds the drift.
 ADMM_TOL = {"f32": (1e-4, 1e-4), "bf16": (0.5, 2e-3), "bf16x2": (0.5, 2e-3)}  # (largest, median)
-# The card's peaks (NVIDIA H100 SXM data sheet, dense, at the 700 W limit):
-# what each kernel's least time ("bound") is computed from.
-HBM_BYTES_PER_S = 3.35e12
-F32_FLOP_PER_S = 67e12  # float32 outside the tensor cores
 
 
 def require(cond, msg: str) -> None:
@@ -213,38 +222,29 @@ def require(cond, msg: str) -> None:
         raise RuntimeError(msg)
 
 
-def make_params(cfg, pushes, t0=T0, x0=None, device="cuda"):
-    """Bench-shaped walking parameters, one item per push row [B, 3]; `t0` a
-    float, or a tensor [B] of one start time per item."""
+def params_at(cfg, pushes, t0, x0=None, device="cuda"):
+    """apps.bench's parameters (one item per push row [B, 3]) moved to start
+    time `t0`, a float or a tensor [B] of one start time per item, the CoM
+    reference moved with it, and starting from x0 [B, 9] where given."""
+    p = BENCH.make_params(cfg, pushes, device=device)
     B = pushes.shape[0]
     plan = contacts.snap_to_grid(contacts.make_alternating_gait(n_steps=8, device=device), cfg.dt)
     if isinstance(t0, torch.Tensor):
         plan = type(plan)(*[a.expand((B,) + a.shape) for a in plan])
         stage = contacts.mpc_stage_params(plan, t0.to(device), cfg.T, cfg.dt, cfg.n_slots)
         stage = type(stage)(*[a.contiguous() for a in stage])
-        shift = (t0.to(device) - T0)[:, None, None]
+        shift = (t0.to(device) - BENCH.T0)[:, None, None]
     else:
         stage = contacts.mpc_stage_params(plan, t0, cfg.T, cfg.dt, cfg.n_slots)
-        stage = type(stage)(*[a.expand((B,) + a.shape).contiguous() for a in stage])
-        shift = t0 - T0
-    N = cfg.N
-    j = torch.arange(N, device=device, dtype=torch.float32)[:, None]
-    com_ref = torch.tensor([0.0, 0.0, 0.7], device=device) + 0.08 * (cfg.dt * j + shift) * torch.tensor(
-        [1.0, 0.0, 0.0], device=device
-    )
-    if x0 is None:
-        x0 = torch.tensor([0.0, 0.0, 0.7, 0, 0, 0, 0, 0, 0], device=device).expand(B, 9)
-    return MPCParams(
-        x0=x0.contiguous(),
-        com_ref=com_ref.expand(B, N, 3).contiguous(),
-        ang_mom_ref=torch.zeros(B, N, 3, device=device),
-        stage=stage,
-        ext_force=pushes.to(device),
-        ext_torque=torch.zeros(B, 3, device=device),
-    )
+        stage = type(stage)(*[a.expand((B,) + a.shape) for a in stage])
+        shift = t0 - BENCH.T0
+    ahead = torch.tensor([1.0, 0.0, 0.0], device=device)
+    return p._replace(stage=stage, com_ref=p.com_ref + 0.08 * shift * ahead, x0=p.x0 if x0 is None else x0)
 
 
 def lateral(values, device="cuda"):
+    """[n, 3]: pushes along y at the given values (apps.bench.lateral_pushes
+    builds the linspace(-1, 1) ones)."""
     v = torch.as_tensor(values, dtype=torch.float32, device=device)
     return torch.stack([torch.zeros_like(v), v, torch.zeros_like(v)], dim=-1)
 
@@ -312,79 +312,110 @@ def check_spd_inverse(name, M):
     return err
 
 
-def profile(fn):
-    """One torch.profiler pass over one call of `fn`: [(event key, launches,
-    device ms)]."""
+# A torch.profiler session in this long script loses the kernel records of
+# its first moments (on an H100, torch 2.11: the first 4 of K3's 48 launches
+# in every pass, all of K4's, K5's and torch.matmul's; once every record of a
+# K3 call), though a fresh process records them. So every session is fenced:
+# FENCE_PADS torch.cuda._sleep kernels and a FENCE_WAIT_S wait before the
+# profiled call, one more after it, and a pass counts only where the first
+# and the last kernel it recorded are fences, i.e. where it kept the whole
+# call; a pass that does not is taken again, up to PROFILE_PASSES times.
+# What is still not recorded reads "not measured": the profiles are timings
+# and nothing held reads them (the launches are the wrappers' counts, the
+# times CUDA events'). Where phase 1's probe finds that the profiler records
+# nothing, no profile is taken.
+PROFILE_PASSES = 3
+FENCE, FENCE_PADS, FENCE_WAIT_S = "spin_kernel(", 64, 0.02
+PROFILER_RECORDS = [True]
+
+
+@contextlib.contextmanager
+def fenced_profile():
+    """A torch.profiler session (host and card) around the body, fenced."""
     from torch.profiler import ProfilerActivity, profile as torch_profile
 
-    fn()
     torch.cuda.synchronize()
-    with torch_profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
+    with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(FENCE_PADS):
+            torch.cuda._sleep(1000)
         torch.cuda.synchronize()
-    return [(ev.key, ev.count,
-             (getattr(ev, "self_device_time_total", None) or getattr(ev, "self_cuda_time_total", 0.0)) / 1e3)
-            for ev in prof.key_averages()]
+        time.sleep(FENCE_WAIT_S)
+        yield prof
+        torch.cuda.synchronize()
+        torch.cuda._sleep(1000)
+        torch.cuda.synchronize()
+
+
+def whole(names):
+    """Whether a fenced session kept its body: its card events' names in
+    the order they started begin and end with a fence."""
+    return bool(names) and FENCE in names[0] and FENCE in names[-1]
+
+
+def profile(fn):
+    """One fenced torch.profiler pass over one call of `fn`: [(event key,
+    launches, device ms)] of the kernels, copies and fills it ran on the
+    card; empty where the pass did not keep the whole call."""
+    from torch.autograd import DeviceType
+
+    if not PROFILER_RECORDS[0]:
+        return []
+    fn()
+    with fenced_profile() as prof:
+        fn()
+    events = sorted((e for e in prof.events()
+                     if e.device_type == DeviceType.CUDA and not getattr(e, "is_user_annotation", False)),
+                    key=lambda e: e.time_range.start)
+    if not whole([e.name for e in events]):
+        return []
+    rows = {}
+    for e in events:
+        if FENCE not in e.name:
+            row = rows.setdefault(e.name, [0, 0.0])
+            row[0] += 1
+            row[1] += e.time_range.elapsed_us() / 1e3
+    return [(key, count, ms) for key, (count, ms) in rows.items()]
 
 
 def device_time(fn):
-    """One torch.profiler pass over one call of `fn`: (device ms of every
-    kernel, copy and fill it ran, their count, (name, ms) of the largest)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile as torch_profile
-
-    fn()
-    torch.cuda.synchronize()
-    with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    rows = [(ev.key, ev.count, ev.self_device_time_total / 1e3) for ev in prof.key_averages()
-            if ev.device_type == DeviceType.CUDA and not getattr(ev, "is_user_annotation", False)]
-    key, _, top = max(rows, key=lambda r: r[2])
-    return sum(ms for _, _, ms in rows), sum(count for _, count, _ in rows), (key, top)
+    """(device ms of every kernel, copy and fill one call of `fn` ran, their
+    count, (name, ms) of the largest), or None where PROFILE_PASSES passes
+    kept none."""
+    for _ in range(PROFILE_PASSES):
+        rows = profile(fn)
+        if rows:
+            key, _, top = max(rows, key=lambda r: r[2])
+            return sum(ms for _, _, ms in rows), sum(count for _, count, _ in rows), (key, top)
+    return None
 
 
 def profile_stages(fn, stages):
     """{stage: (launches, device ms)} of one call of `fn` for each (kernel
-    name, stage) of `stages`. A profiler pass now and then drops a kernel's
-    record (seen once on an H100: a symv pass without its partials kernel),
-    so up to 3 passes are taken until one records every stage: a second
-    drop in a row has not been seen, a third pass is the margin."""
-    for _ in range(3):
+    name, stage) of `stages`, from the first of up to PROFILE_PASSES passes
+    that kept the whole call; None where none did."""
+    for _ in range(PROFILE_PASSES):
         got = {stage: (count, ms) for key, count, ms in profile(fn) for kernel, stage in stages
                if f"{kernel}(" in key or f"{kernel}<" in key}
         if len(got) == len(stages):
             return got
-    require(False, f"profile found only {sorted(got)} in each of 3 passes")
+    return None
 
 
-def bound(nbytes, flops):
-    """(least ms on the card, what sets it, ms of the bytes, ms of the
-    operations): bytes moved once over the memory rate against float32
-    operations over the float32 peak."""
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOP_PER_S * 1e3
-    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations"), t_bytes, t_ops
+NOT_PROFILED = f"not measured (no profiler pass of {PROFILE_PASSES} kept the whole call)"
 
 
 def bound_spd_inverse(M):
-    # Cholesky n^3/3, triangular inverse n^3/3, the symmetric X^T X n^3/3
-    B, n = M.shape[0], M.shape[-1]
-    return bound(2 * M.numel() * 4, B * n**3)
+    return R.bound(*R.spd_inverse_work(M.shape[0], M.shape[-1]))
 
 
 def bound_symv(packed, v):
-    B, n = v.shape
-    return bound((packed.numel() + 2 * v.numel()) * 4, 2 * B * n * n)
+    return R.bound(*R.symv_work(v.shape[0], packed.shape[1], v.shape[1], packed.shape[-1]))
 
 
 def bound_admm_fused(args, iters):
-    # inputs read once, (x, zc, y) written once; per iteration minv rhs (2 n^2),
-    # A^T w and A x (2 nnz(A) each, counted on these A) and the vector updates
-    # (12 m + 3 n)
+    # nnz counted on these A
     B, m, n = args[1].shape  # A
-    nbytes = (sum(t.numel() for t in args) + B * (n + 2 * m)) * 4
-    nnz = int(torch.count_nonzero(args[1]))
-    return bound(nbytes, iters * (B * (2 * n * n + 12 * m + 3 * n) + 4 * nnz))
+    return R.bound(*R.admm_fused_work(B, n, m, int(torch.count_nonzero(args[1])), iters))
 
 
 def qp_around(A, gen):
@@ -470,7 +501,7 @@ def tick_chain(solver, cfg, ticks, push=0.0):
     """B = 1: a cold solve, then `ticks` warm-started receding-horizon ticks
     (t0 advances by dt, x0 is the previous solve's predicted next state).
     Returns the solutions and the per-solve wall times in ms."""
-    params = make_params(cfg, lateral([push]))
+    params = BENCH.make_params(cfg, lateral([push]))
     warm = solver.cold_start(1)
     sols, times = [], []
     for k in range(ticks + 1):
@@ -482,29 +513,23 @@ def tick_chain(solver, cfg, ticks, push=0.0):
         require(float(sol.prim_res.max()) < 1e-2, f"tick {k}: prim_res {float(sol.prim_res.max())}")
         require(bool(torch.isfinite(sol.z).all()), f"tick {k}: non-finite z")
         sols.append(sol)
-        nxt = make_params(cfg, lateral([push]), t0=T0 + (k + 1) * cfg.dt, x0=sol.states[:, 1])
+        nxt = params_at(cfg, lateral([push]), BENCH.T0 + (k + 1) * cfg.dt, x0=sol.states[:, 1])
         warm = solver.warm_from(nxt, sol)
         params = nxt
     return sols, times
 
 
-def bench_chain(solver, cfg, B=512, KB=4, prim_max=1e-2):
-    """bench.py's shape: B lateral pushes in linspace(-1, 1), KB warm-started
-    solves of the same parameters. Returns (costs [KB, B], prim [KB, B], s).
-    The costs must be finite and, unless prim_max is None, prim_res below it."""
-    params = make_params(cfg, lateral(torch.linspace(-1.0, 1.0, B)))
-    warm = solver.cold_start(B)
-    costs, prims = [], []
+def bench_chain(solver, cfg, prim_max=1e-2):
+    """apps.bench's chain on its shape (B = 512 pushes in linspace(-1, 1),
+    KB = 4 warm-started solves), once. Returns (costs [KB, B], prim [KB, B],
+    seconds). The costs must be finite and, unless prim_max is None,
+    prim_res below it."""
+    params = BENCH.make_params(cfg, BENCH.lateral_pushes(512))
     torch.cuda.synchronize()
     t = time.perf_counter()
-    for _ in range(KB):
-        sol = solver.solve(params, warm)
-        warm = solver.warm_from(params, sol)
-        costs.append(sol.cost)
-        prims.append(sol.prim_res)
+    costs, prims = BENCH.chain(solver, params, solver.cold_start(512), 4)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t
-    costs, prims = torch.stack(costs), torch.stack(prims)
     require(bool(torch.isfinite(costs).all()), "bench chain: non-finite cost")
     require(prim_max is None or float(prims.max()) < prim_max, f"bench chain: prim_res {float(prims.max())}")
     return costs, prims, seconds
@@ -513,7 +538,7 @@ def bench_chain(solver, cfg, B=512, KB=4, prim_max=1e-2):
 def push_saturates_box(solver, cfg):
     """ext_force [0, 1.2, 0] moves the left foot's next step to the +y edge of
     its box (dy = bbox_upper[0][1] = 0.05) and stays inside every box."""
-    params = make_params(cfg, lateral([1.2]))
+    params = BENCH.make_params(cfg, lateral([1.2]))
     sol = solver.solve(params, solver.cold_start(1))
     stage = params.stage
     adj = (stage.slot_adjustable * stage.slot_valid)[..., None]
@@ -531,8 +556,6 @@ def push_saturates_box(solver, cfg):
 
 MANN_SPEED = 0.05  # m/s: the synthetic weights' forward base motion
 RECEDING_TICKS = 6  # phase 8's B = 1 receding fused ticks (cut from 11 for the script's time)
-COM_HEIGHT_DROP = 0.05  # WalkingConfig.com_height_drop (runtime/config.py:46)
-PLAN_PHASES = 16  # WalkingConfig.plan_phases
 # card f32 vs the port's CPU f64, per generator channel after 40 steps; the
 # CPU's own f32-vs-f64 gap on the same rollouts is ~1e-7 (com) and ~4e-7
 # (angular momentum), so these allow two orders of magnitude for the card's
@@ -629,97 +652,6 @@ def mann_onnx_bytes(W: dict) -> bytes:
     return _field(1, 0, 7) + _field(7, 2, graph)  # ir_version, graph
 
 
-class Chain(NamedTuple):
-    """What the MPC stage carries from one tick to the next (LoopState's
-    t, gen_state, plan, warm and x9), each [B, ...]."""
-
-    t: torch.Tensor  # [B]
-    gen: G.GeneratorState
-    plan: contacts.ContactPlan
-    warm: WarmStart
-    x0: torch.Tensor  # [B, 9]
-
-
-def walk_ready_chain(solver, model, gen_cfg, B, *, device="cuda"):
-    """WalkingController.initial_state (runtime/loop.py:335-395) from the
-    walk-ready pose (kin.walk_ready_pose, passed explicitly, so no polish):
-    the base placed so that the lower sole touches the ground, a double-stance
-    plan on the FK soles projected to z = 0 with yaw-only rotations, the
-    generator seeded with the same pose, zero velocities. Returns the chain
-    and the CoM height reference [B] (com0 z - com_height_drop, loop.py:367)."""
-    dtype = torch.float32
-    q_np, rot_np = kin.walk_ready_pose()
-    q = torch.as_tensor(q_np, dtype=dtype, device=device).expand(B, -1).contiguous()
-    base_rot = torch.as_tensor(rot_np, dtype=dtype, device=device).expand(B, 3, 3)
-    zeros3 = torch.zeros(B, 3, dtype=dtype, device=device)
-    li, ri = model.frame_index("l_sole"), model.frame_index("r_sole")
-    _, fp = kin.frame_poses(model, *kin.fk(model, q, base_rot, zeros3))
-    base_pos = torch.cat([zeros3[:, :2], -torch.minimum(fp[:, li, 2:3], fp[:, ri, 2:3])], dim=-1)
-    lR, lp = kin.fk(model, q, base_rot, base_pos)
-    fR, fp = kin.frame_poses(model, lR, lp)
-    com0 = kin.com(model, lR, lp)
-    plan = contacts.empty_plan(2, PLAN_PHASES, device=device, dtype=dtype)
-    plan = contacts.ContactPlan(*(a.expand((B,) + a.shape).clone() for a in plan))
-    for foot, idx in enumerate((li, ri)):
-        plan.act[:, foot, 0] = 0.0
-        plan.valid[:, foot, 0] = 1.0
-        plan.pos[:, foot, 0, :2] = fp[:, idx, :2]
-        plan.rot[:, foot, 0] = lie.rotz(lie.yaw_of(fR[:, idx]))
-    chain = Chain(
-        t=torch.zeros(B, dtype=dtype, device=device),
-        gen=G.initial_state(gen_cfg, model, q),
-        plan=plan,
-        warm=solver.cold_start(B, device=device, dtype=dtype),
-        x0=pack_state(com0, zeros3, zeros3),
-    )
-    return chain, com0[:, 2] - COM_HEIGHT_DROP
-
-
-def mpc_tick(solver, gen_cfg, model, weights, chain: Chain, joy, com_z_ref, mann_advance: int):
-    """One MPC tick of WalkingController._mpc_stage on the kinematic plant,
-    on a generator-call tick (runtime/loop.py:508-1053, steps 1-7), from the
-    joystick joy [B, 4] (motion, facing). The next chain re-roots the
-    generator mann_advance knots in and starts from the solve's predicted
-    state one interval ahead. Returns (next chain, solution, MPC parameters)."""
-    cfg = solver.cfg
-    t, B = chain.t, chain.t.shape[0]
-    dtype, device = t.dtype, t.device
-    # 1. joystick -> desired base trajectory (loop.py:724)
-    desired = IB.build_desired_trajectory(joy[:, 0:2], joy[:, 2:4])
-    # 2. MANN autoregression, re-rooted mann_advance knots in (loop.py:785-790)
-    _, outs, states = G.generate_with_states(gen_cfg, model, weights, chain.gen, desired)
-    gen_next = G.GeneratorState(*(a[:, mann_advance - 1] for a in states))
-    # 3. the contact timeline, prepended with the current state, as a plan
-    # (loop.py:794-812); knots slow_down_factor * dt apart (loop.py:761-764)
-    gen_times = (torch.arange(gen_cfg.n_steps, dtype=dtype, device=device) + 1.0) * (
-        gen_cfg.dt * gen_cfg.slow_down_factor)
-    flags = torch.cat([chain.gen.contact[:, None], outs.contact], dim=1)
-    pose = torch.cat([chain.gen.foot_pose_xy_yaw[:, None], outs.foot_pose_xy_yaw], dim=1)
-    tl_times = t[:, None] + torch.cat([torch.zeros(1, dtype=dtype, device=device), gen_times])
-    foot_pos = torch.cat([pose[..., 0:2], torch.zeros_like(pose[..., :1])], dim=-1)
-    mann_plan = contacts.plan_from_timeline(flags, tl_times, foot_pos, lie.rotz(pose[..., 2]), P=PLAN_PHASES)
-    # 4. frequency adapters at the MPC knots, offset 0 on a call tick; CoM z
-    # overridden; angular momentum scaled by ang_mom_ref_scale (1) / (mass *
-    # slow_down_factor) (loop.py:761-765, 831-852; ref_ramp 0 on this plant)
-    knot_times = torch.arange(cfg.N, dtype=dtype, device=device) * cfg.dt
-    com_ref, _ = linear_spline(gen_times, outs.com, knot_times)
-    com_ref = torch.cat([com_ref[..., 0:2], com_z_ref[:, None, None].expand(B, cfg.N, 1)], dim=-1)
-    L_ref, _ = linear_spline(gen_times, outs.ang_mom, knot_times)
-    L_ref = L_ref * (1.0 / (model.total_mass * gen_cfg.slow_down_factor))
-    # 5. merge with the previous (adjusted) plan, snap to the grid (loop.py:856-857)
-    plan = contacts.snap_to_grid(contacts.merge_plans(mann_plan, chain.plan, t), cfg.dt)
-    # 6. solve (loop.py:996-1009); no measured wrench, so the deadbanded one is 0
-    stage = contacts.mpc_stage_params(plan, t, cfg.T, cfg.dt, cfg.n_slots)
-    zeros3 = torch.zeros(B, 3, dtype=dtype, device=device)
-    params = MPCParams(x0=chain.x0, com_ref=com_ref, ang_mom_ref=L_ref, stage=stage, ext_force=zeros3,
-                       ext_torque=zeros3)
-    sol = solver.solve(params, chain.warm)
-    # 7. write the adjusted footsteps back (loop.py:1012)
-    plan = contacts.write_back_adjusted(plan, t, cfg.n_slots, sol.positions, stage.slot_valid)
-    nxt = Chain(t=t + cfg.dt, gen=gen_next, plan=plan, warm=solver.warm_from(params, sol), x0=sol.states[:, 1])
-    return nxt, sol, params
-
-
 def joysticks(B, device="cuda"):
     """[B, 4] joystick commands (motion, facing): item 0 walks forward, the
     rest are random sticks in all four quadrants, each motion stick pushed at
@@ -732,12 +664,18 @@ def joysticks(B, device="cuda"):
     return torch.as_tensor(joy, dtype=torch.float32, device=device)
 
 
-def mann_advance(gen_cfg, mpc_dt: float) -> int:
-    """WalkingConfig.mann_advance (runtime/config.py:376-410): generator steps
-    per call, lcm(slow_down_factor * gen dt, MPC dt) / (slow_down_factor *
-    gen dt); 3 for the 20 ms generator under the 60 ms MPC."""
-    a = round(gen_cfg.slow_down_factor * gen_cfg.dt * 1e6)
-    return int(round(math.lcm(a, round(mpc_dt * 1e6)) / a))
+def coast(ctl, s):
+    """s one MPC period on, as the kinematic loop's WBC ticks carry the MPC's
+    plant (runtime/loop.py `_wbc_stage`) without a push: gait time one MPC
+    interval on, tick mpc_every on, x9 integrated under the held
+    first-interval forces by mpc_every RK4 steps of wbc_dt. The joints and
+    the base stay where they are (phase 9 runs the WBC stage itself)."""
+    cfg = ctl.cfg
+    zero = torch.zeros_like(s.x9[:, 0:3])
+    x9 = s.x9
+    for _ in range(cfg.mpc_every):
+        x9 = rk4_step(lambda x: centroidal_dynamics(x, s.forces0, s.corner0, s.active0, zero, zero), x9, cfg.wbc_dt)
+    return s._replace(t=s.t + cfg.mpc.dt, tick=s.tick + cfg.mpc_every, x9=x9)
 
 
 KERNELS = {"spd_inverse": K3, "symv_packed": K4, "admm_fused": K5}
@@ -826,68 +764,79 @@ def phase_mann_mpc(tag):
         print(f"phase 8 time generator B={B}: {wall[B]:.1f} ms per generate_with_states call "
               f"({gen_cfg.n_steps} steps, wall, mean of 3) {tag}")
         if B == 1:
-            dev_ms, count, (key, top) = device_time(call)
-            print(f"phase 8 profile generator B=1: device {dev_ms:.3f} ms in {count} kernels, copies and fills; wall "
-                  f"{wall[1]:.1f} ms (unprofiled, above), idle share {1 - dev_ms / wall[1]:.3f}; largest "
-                  f"{key[:60]} {top:.3f} ms {tag}")
+            d = device_time(call)
+            if d is None:
+                print(f"phase 8 profile generator B=1: {NOT_PROFILED} {tag}")
+            else:
+                dev_ms, count, (key, top) = d
+                print(f"phase 8 profile generator B=1: device {dev_ms:.3f} ms in {count} kernels, copies and fills; "
+                      f"wall {wall[1]:.1f} ms (unprofiled, above), idle share {1 - dev_ms / wall[1]:.3f}; largest "
+                      f"{key[:60]} {top:.3f} ms {tag}")
 
-    # --- the MPC tick: fused (K3 + K5) and Riccati, B = 256, then a B = 1 chain
+    # --- the controller's MPC stage: fused (K3 + K5) and Riccati, B = 256, then a
+    # B = 1 chain, from the walk-ready pose (an explicit start: no IK polish of q0)
     cfg_fused = ergocub_mpc_config(kkt_impl="dense", admm_impl="fused")
-    fused, ric = CentroidalMPCSolver(cfg_fused), CentroidalMPCSolver(ergocub_mpc_config())
-    adv = mann_advance(gen_cfg, cfg_fused.dt)
+    fused = RL.WalkingController(ergocub_gazebo_v1(mpc=cfg_fused), model, weights)
+    ric = RL.WalkingController(ergocub_gazebo_v1(mpc=ergocub_mpc_config()), model, weights)
+    cpu = RL.WalkingController(ergocub_gazebo_v1(mpc=ergocub_mpc_config()), model,
+                               convert.mann_weights_from_numpy(W, device="cpu", dtype=torch.float64), device="cpu")
+    q0, rot0 = kin.walk_ready_pose()
     zero_launches()
-    joy = joysticks(256)
-    ticks = {}
-    for name, solver in (("fused", fused), ("riccati", ric)):
-        chain, z_ref = walk_ready_chain(solver, model, gen_cfg, 256)
-        nxt, sol, params = mpc_tick(solver, gen_cfg, model, weights, chain, joy, z_ref, adv)
-        require(bool(torch.isfinite(sol.z).all()), f"MANN -> MPC {name} B=256: non-finite z")
-        ticks[name] = (sol, params, nxt)
+    s0 = fused.initial_state(256, q0=q0, base_rot0=rot0)  # both MPCs' state: the same sizes
+    zeros = torch.zeros(256, 3, device=dev)
+    inp = RL.TickInput(joysticks(256), zeros, zeros)
+    nxt = {name: ctl._mpc_stage(s0, inp) for name, ctl in (("fused", fused), ("riccati", ric))}
+    for name, s in nxt.items():
+        require(bool(torch.isfinite(s.warm.z).all()), f"MANN -> MPC {name} B=256: non-finite z")
     n_fused = 1
-    p_f, p_r = ticks["fused"][1], ticks["riccati"][1]
-    print(f"phase 8 MANN -> MPC B=256: the two paths' references differ by max|com_ref| "
-          f"{float((p_f.com_ref - p_r.com_ref).abs().max()):.2e}, active intervals "
-          f"{int((p_f.stage.active != p_r.stage.active).sum())}; left foot swinging in "
-          f"{int((p_f.stage.active[:, 0] < 0.5).any(-1).sum())} items, right in "
-          f"{int((p_f.stage.active[:, 1] < 0.5).any(-1).sum())}")
+    s_f, s_r = nxt["fused"], nxt["riccati"]
+
+    def swinging(s, foot):  # items whose foot lifts within the horizon
+        stage = contacts.mpc_stage_params(s.plan, s0.t, cfg_fused.T, cfg_fused.dt, cfg_fused.n_slots)
+        return int((stage.active[:, foot] < 0.5).any(-1).sum())
+
+    print(f"phase 8 MANN -> MPC B=256 (WalkingController._mpc_stage): the two paths' references differ by "
+          f"max|com_mann| {float((s_f.com_mann - s_r.com_mann).abs().max()):.2e}, first-interval contacts "
+          f"{int((s_f.active0 != s_r.active0).sum())}; left foot swinging in {swinging(s_f, 0)} items, right in "
+          f"{swinging(s_f, 1)}")
     items = torch.arange(4)
-    p_cpu = F.MPCParams(*(type(a)(*(b[items].cpu() for b in a)) if isinstance(a, tuple) else a[items].cpu()
-                          for a in p_f))
-    cpu = CentroidalMPCSolver(ergocub_mpc_config())
-    s_cpu = cpu.solve(p_cpu, cpu.cold_start(4, device="cpu"))
-    s_f, s_r = ticks["fused"][0], ticks["riccati"][0]
-    for name, a, b in (("fused gpu vs riccati gpu", s_f, s_r), ("fused gpu vs riccati cpu", s_f, s_cpu),
-                       ("riccati gpu vs riccati cpu", s_r, s_cpu)):
-        ca, cb = a.cost.cpu()[: b.cost.shape[0]], b.cost.cpu()
+    s_cpu = cpu._mpc_stage(to_cpu64(items_of(s0, items.to(dev))),
+                           RL.TickInput(*(a[items].cpu().double() for a in inp)))
+    for name, a, b in (("fused gpu vs riccati gpu", s_f, s_r), ("fused gpu vs riccati cpu f64", s_f, s_cpu),
+                       ("riccati gpu vs riccati cpu f64", s_r, s_cpu)):
+        cb = b.mpc_cost.cpu().double()
+        ca = a.mpc_cost.cpu().double()[: cb.shape[0]]
         dc = (ca - cb).abs()
-        prim = float(a.prim_res.max())
+        prim = float(a.mpc_prim.max())
         good = bool((dc <= 0.005 * (cb.abs() + 1.0)).all()) and prim < 1e-2
         print(f"phase 8 sentinel MANN -> MPC {name} (B={ca.shape[0]}): max|dcost| {float(dc.max()):.3e} "
               f"(max |cost| {float(cb.abs().max()):.3f}), prim {prim:.2e}: {'ok' if good else 'FAIL'}")
         require(good, f"MANN -> MPC sentinel failed: {name}")
 
-    chain, z_ref = walk_ready_chain(fused, model, gen_cfg, 1)
-    joy1 = joysticks(1)
+    s = fused.initial_state(1, q0=q0, base_rot0=rot0)
+    inp1 = RL.TickInput(joysticks(1), zeros[:1], zeros[:1])
     t_tick = []
     for k in range(RECEDING_TICKS):
         torch.cuda.synchronize()
         t = time.perf_counter()
-        chain, sol, params = mpc_tick(fused, gen_cfg, model, weights, chain, joy1, z_ref, adv)
+        s = fused._mpc_stage(s, inp1)
         torch.cuda.synchronize()
         t_tick.append((time.perf_counter() - t) * 1e3)
         n_fused += 1
-        require(float(sol.prim_res.max()) < 1e-2, f"MANN -> MPC tick {k}: prim_res {float(sol.prim_res.max())}")
-        require(bool(torch.isfinite(sol.z).all()), f"MANN -> MPC tick {k}: non-finite z")
+        require(float(s.mpc_prim.max()) < 1e-2, f"MANN -> MPC tick {k}: prim_res {float(s.mpc_prim.max())}")
+        require(bool(torch.isfinite(s.warm.z).all()), f"MANN -> MPC tick {k}: non-finite z")
+        cost = float(s.mpc_cost[0])
+        s = coast(fused, s)
     launches = read_launches()
-    com = sol.states[0, 0, :3].tolist()
-    print(f"phase 8 MANN -> MPC main path: 2 B=256 ticks (fused, riccati) and {RECEDING_TICKS} B=1 fused ticks "
-          f"re-rooted {adv} knots in each (t = {float(chain.t):.2f} s, CoM {[round(c, 4) for c in com]}, last cost "
-          f"{float(sol.cost):.4f}); launches {launches}")
+    com = s.x9[0, :3].tolist()
+    print(f"phase 8 MANN -> MPC main path: 2 B=256 MPC stages (fused, riccati) and {RECEDING_TICKS} B=1 fused "
+          f"stages, each calling the generator and re-rooting it {fused.cfg.mann_advance} knots in (t = "
+          f"{float(s.t[0]):.2f} s, CoM {[round(c, 4) for c in com]}, last cost {cost:.4f}); launches {launches}")
     require(launches["spd_inverse"] > 0 and launches["admm_fused"] == cfg_fused.sqp_iters * n_fused,
             f"MANN -> MPC launches {launches}, expected admm_fused {cfg_fused.sqp_iters} x {n_fused} fused solves")
     lat = np.array(t_tick[1:])
-    print(f"phase 8 time MANN -> MPC fused B=1 tick (generator + solve, warm): p50 {np.percentile(lat, 50):.1f} ms, "
-          f"p90 {np.percentile(lat, 90):.1f} ms, max {lat.max():.1f} ms ({len(lat)} ticks) {tag}")
+    print(f"phase 8 time MANN -> MPC fused B=1 MPC stage (generator + solve, warm): p50 {np.percentile(lat, 50):.1f} "
+          f"ms, p90 {np.percentile(lat, 90):.1f} ms, max {lat.max():.1f} ms ({len(lat)} stages) {tag}")
     return launches, weights
 
 
@@ -988,23 +937,24 @@ def mpc_period(ctl, s, inputs, tick0):
     return s
 
 
-def span_profile(ctl, s, inputs, tick0):
-    """One torch.profiler pass over an MPC period: {span: [device ms, kernels,
-    host ms]}: the device time and count of the kernels, copies and fills
-    launched while each span of runtime/loop.py was open (by the launch's
-    time on the host, so that the work of the autograd engine's own thread,
-    the rigid plant's backward passes, counts in the span that waits for it),
-    the span's host time under the profiler, and (device ms, kernels) of the
-    whole pass."""
+def span_profile(fn):
+    """One torch.profiler pass over one call of `fn` (controller stages):
+    {span: [device ms, kernels, host ms]}: the device time and count of the
+    kernels, copies and fills launched while each span of runtime/loop.py was
+    open (by the launch's time on the host, so that the work of the autograd
+    engine's own thread, the rigid plant's backward passes, counts in the
+    span that waits for it), the span's host time under the profiler, and
+    (device ms, kernels) of the whole pass; or None where the fenced pass did
+    not keep the whole call (one pass only: a kinematic MPC period takes
+    ~15 s under the profiler)."""
     import bisect
 
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile as torch_profile
 
-    torch.cuda.synchronize()
-    with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        mpc_period(ctl, s, inputs, tick0)
-        torch.cuda.synchronize()
+    if not PROFILER_RECORDS[0]:
+        return None
+    with fenced_profile() as prof:
+        fn()
     spans = {name: [0.0, 0, 0.0] for name in SPANS + ("outside the spans",)}
     # the launch times of the kernels' host calls are in the profiler's raw
     # events (kineto_results, not a public API); the averaged events only link
@@ -1014,6 +964,10 @@ def span_profile(ctl, s, inputs, tick0):
             f"span_profile: torch {torch.__version__}'s profiler has no kineto_results.events(), which this "
             f"attribution by launch time reads")
     events = results.events()
+    on_card = sorted((e.start_ns(), e.name()) for e in events
+                     if e.device_type() == DeviceType.CUDA and not e.is_user_annotation())
+    if not whole([name for _, name in on_card]):
+        return None
     opened = sorted((e.start_ns(), e.end_ns(), e.name()) for e in events
                     if e.device_type() == DeviceType.CPU and e.name() in SPANS)
     starts = [o[0] for o in opened]
@@ -1022,7 +976,7 @@ def span_profile(ctl, s, inputs, tick0):
     launched = {e.correlation_id(): e.start_ns() for e in events
                 if e.device_type() == DeviceType.CPU and e.correlation_id() > 0}
     for e in events:
-        if e.device_type() != DeviceType.CUDA or e.is_user_annotation():
+        if e.device_type() != DeviceType.CUDA or e.is_user_annotation() or FENCE in e.name():
             continue
         t = launched.get(e.linked_correlation_id(), e.start_ns())  # (unlinked: its own start)
         i = bisect.bisect_right(starts, t) - 1
@@ -1142,13 +1096,17 @@ def phase_closed_loop(tag, weights, dev="cuda"):
     mpc_period(ctl_l, s60, period_in, S)
     torch.cuda.synchronize()
     period_wall = (time.perf_counter() - t) * 1e3
-    spans, (dev_ms, kernels) = span_profile(ctl_l, s60, period_in, S)
-    print(f"phase 9 profile MPC period B=256 ({every} ticks: 1 MPC stage + {every} WBC stages): wall "
-          f"{period_wall:.1f} ms (unprofiled), device {dev_ms:.3f} ms in {kernels} kernels, idle share "
-          f"{1 - dev_ms / period_wall:.3f} {tag}")
-    for name, (ms, count, host) in spans.items():
-        print(f"phase 9 profile MPC period B=256 span {name}: device {ms:.3f} ms "
-              f"({100 * ms / max(dev_ms, 1e-9):.1f} %), {count} kernels, host {host:.1f} ms under the profiler {tag}")
+    prof = span_profile(lambda: mpc_period(ctl_l, s60, period_in, S))
+    if prof is None:
+        print(f"phase 9 profile MPC period B=256: wall {period_wall:.1f} ms (unprofiled); device {NOT_PROFILED} {tag}")
+    else:
+        spans, (dev_ms, kernels) = prof
+        print(f"phase 9 profile MPC period B=256 ({every} ticks: 1 MPC stage + {every} WBC stages): wall "
+              f"{period_wall:.1f} ms (unprofiled), device {dev_ms:.3f} ms in {kernels} kernels, idle share "
+              f"{1 - dev_ms / period_wall:.3f} {tag}")
+        for name, (ms, count, host) in spans.items():
+            print(f"phase 9 profile MPC period B=256 span {name}: device {ms:.3f} ms ({100 * ms / dev_ms:.1f} %), "
+                  f"{count} kernels, host {host:.1f} ms under the profiler {tag}")
     print(f"phase 9 took {time.perf_counter() - t_phase:.1f} s")
     return launches
 
@@ -1157,6 +1115,7 @@ def phase_closed_loop(tag, weights, dev="cuda"):
 # (cmw_tpu/runtime/loop.py WalkingController with cfg.rigid, sim/rigid_body.py)
 
 RIGID_TICKS = 60  # 2 MPC ticks standing at B = 1 (cut from 90 for the script's time)
+RIGID_WALL_TICKS = 15  # timed rigid WBC ticks at B = 1 and 256 (cut from 29 for the script's time)
 RIGID_SWEEP_B = 256
 RIGID_SWEEP_TICKS = 60  # 2 MPC ticks at B = 256; the lifted left foot swings from tick 30
 RIGID_CHECKED = 4  # items of the B = 256 sweep held against the CPU
@@ -1480,29 +1439,36 @@ def phase_rigid_loop(tag, dev="cuda"):
           f"{prim_p:.2e} (not held); items 0-3 against the CPU f64: flags and active corners identical on all {S} "
           f"ticks, first MPC period largest gap {gap_l:.2e} ({chan_l}) {tag}")
 
-    # --- times: rigid WBC ticks alone, their launches, an MPC period by span --
+    # --- times: rigid WBC ticks alone, their launches, a B = 256 tick by span ---
     inp1 = RL.TickInput(*(a[:, 0] for a in tick_inputs(stand, 1)))
     inp256 = RL.TickInput(*(a[:, 0] for a in tick_inputs(joy, 1)))
     for b, c, s_at, inp in ((1, ctl, s_stand, inp1), (B, ctl_l, s60, inp256)):
-        _, w, n_sync = wbc_walls(c, s_at, inp, 29)
-        dev_ms, count, (key, top) = device_time(lambda: c._wbc_stage(s_at, inp))
+        _, w, n_sync = wbc_walls(c, s_at, inp, RIGID_WALL_TICKS)
+        d = device_time(lambda: c._wbc_stage(s_at, inp))
+        profiled = NOT_PROFILED if d is None else (f"{d[1]} kernels, copies and fills, device {d[0]:.3f} ms, largest "
+                                                   f"{d[2][0][:60]} {d[2][1]:.3f} ms")
         print(f"phase 10 time rigid WBC tick B={b}: p50 {np.percentile(w, 50):.2f} ms, p90 {np.percentile(w, 90):.2f} "
               f"ms, max {w.max():.2f} ms ({len(w)} ticks, wall, synchronised, sync debug mode off); one tick "
-              f"profiled: {count} kernels, copies and fills, device {dev_ms:.3f} ms, largest {key[:60]} {top:.3f} "
-              f"ms; operations that waited for the card in 3 ticks under the mode: {sum(n_sync.values())} "
-              f"{n_sync or ''} {tag}")
+              f"profiled: {profiled}; operations that waited for the card in 3 ticks under the mode: "
+              f"{sum(n_sync.values())} {n_sync or ''} {tag}")
         require(not n_sync, f"rigid WBC tick B={b}: operations waited for the card: {n_sync}")
-    # the unprofiled period: the mean of the B = 256 episode's two periods
-    period_wall = wall_l * 1e3 * every / S
+    # the MPC stage's spans are phase 9's (the same stage); here the WBC
+    # tick's, where the rigid plant sits (a whole rigid period took a minute
+    # under the profiler)
     t = time.perf_counter()
-    spans, (dev_ms, kernels) = span_profile(ctl_l, s60, tick_inputs(joy, every), S)
+    prof = span_profile(lambda: ctl_l._wbc_stage(s60, inp256))
     print(f"phase 10 profile pass {time.perf_counter() - t:.1f} s")
-    print(f"phase 10 profile rigid MPC period B=256 ({every} ticks: 1 MPC stage + {every} WBC stages): wall "
-          f"{period_wall:.1f} ms (unprofiled: the mean of the {S}-tick episode's periods), device {dev_ms:.3f} ms "
-          f"in {kernels} kernels, idle share {1 - dev_ms / period_wall:.3f} {tag}")
-    for name, (ms, count, host) in spans.items():
-        print(f"phase 10 profile rigid MPC period B=256 span {name}: device {ms:.3f} ms "
-              f"({100 * ms / max(dev_ms, 1e-9):.1f} %), {count} kernels, host {host:.1f} ms under the profiler {tag}")
+    tick_wall = float(np.percentile(w, 50))  # the B = 256 ticks' p50 above
+    if prof is None:
+        print(f"phase 10 profile rigid WBC tick B={B}: wall {tick_wall:.1f} ms (unprofiled p50); device {NOT_PROFILED} "
+              f"{tag}")
+    else:
+        spans, (dev_ms, kernels) = prof
+        print(f"phase 10 profile rigid WBC tick B={B}: wall {tick_wall:.1f} ms (unprofiled p50), device {dev_ms:.3f} "
+              f"ms in {kernels} kernels, idle share {1 - dev_ms / tick_wall:.3f} {tag}")
+        for name, (ms, count, host) in spans.items():
+            print(f"phase 10 profile rigid WBC tick B={B} span {name}: device {ms:.3f} ms ({100 * ms / dev_ms:.1f} %), "
+                  f"{count} kernels, host {host:.1f} ms under the profiler {tag}")
     print(f"phase 10 took {time.perf_counter() - t_phase:.1f} s")
     return launches
 
@@ -1856,7 +1822,7 @@ def phase_remaining(tag, cfg_dense):
     t = time.perf_counter()
     _, _, s32 = bench_chain(CentroidalMPCSolver(cfg_dense), cfg_dense)
     env32 = dataclasses.replace(cfg_dense, **BF16_ENVELOPE)
-    params = make_params(env32, lateral(BF16_PUSHES))
+    params = BENCH.make_params(env32, lateral(BF16_PUSHES))
     ref = CentroidalMPCSolver(env32)
     ref = ref.solve(params, ref.cold_start(len(BF16_PUSHES)))
     zero_launches()  # the f32 runs above launch K4; the bf16 runs below must not
@@ -1953,12 +1919,86 @@ def phase_remaining(tag, cfg_dense):
     return launches
 
 
+# --- the benchmark entry points: apps.bench, apps.bench_kkt, apps.breakdown ----
+
+# bench.py's keys (bench.py:173-190; tests/test_torch_bench.py ties them to it)
+BENCH_KEYS = {"metric", "value", "unit", "vs_baseline", "extra"}
+BENCH_EXTRA_KEYS = {"batch", "sqp_iters", "admm_iters", "compile_s", "model_flops_per_solve", "mfu_est",
+                    "hbm_bytes_per_solve", "hbm_bw_util_est", "numerics_ok", "device"}
+BENCH_REPS = 2  # timed chains after the first, in each bench line (the CLIs' 5, cut for the script's time)
+BENCH_SAMPLES = 1  # B = 1 latency dispatches of 10 solves (bench.py's 200, cut for the script's time)
+
+
+def captured(main, argv):
+    """(the lines main(argv) printed on stdout, the launches in the call),
+    the counts zeroed just before it."""
+    out = io.StringIO()
+    zero_launches()
+    with contextlib.redirect_stdout(out):
+        main(argv)
+    return out.getvalue().splitlines(), read_launches()
+
+
+def phase_benchmarks(tag):
+    """Phase 13: the port's benchmark line (apps.bench --full), the KKT
+    paths' A/B (apps.bench_kkt both, fused) and the stage breakdown
+    (apps.breakdown), at B = 512, each with its launches held. Returns the
+    launches of the phase."""
+    from cmw_tpu_torch.apps import bench_kkt, breakdown
+
+    t_phase = time.perf_counter()
+    solves = (1 + BENCH_REPS) * BENCH.KB  # B = 512 solves of one path in one bench line
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "bench_extra.json")
+        t = time.perf_counter()
+        lines, l_bench = captured(BENCH.main, ["--full", "--reps", str(BENCH_REPS), "--samples", str(BENCH_SAMPLES),
+                                              "--extra-out", path])
+        with open(path) as f:
+            extras = json.load(f)
+    print(f"phase 13 apps.bench --full ({time.perf_counter() - t:.1f} s, launches {l_bench}): {lines}")
+    print(f"phase 13 apps.bench extras: {json.dumps(extras['extra'])} {tag}")
+    require(len(lines) == 1, f"apps.bench printed {len(lines)} lines, not one")
+    rec = json.loads(lines[0])
+    require(set(rec) == BENCH_KEYS and set(rec["extra"]) == BENCH_EXTRA_KEYS,
+            f"apps.bench keys {sorted(rec)} / {sorted(rec['extra'])} are not bench.py's")
+    ex = rec["extra"]
+    require(ex["numerics_ok"] is True, "apps.bench: numerics_ok false")
+    require(math.isfinite(rec["value"]) and rec["value"] > 0, f"apps.bench value {rec['value']}")
+    require(0 < ex["mfu_est"] <= 1.05 and 0 < ex["hbm_bw_util_est"] <= 1.05,
+            f"apps.bench mfu_est {ex['mfu_est']}, hbm_bw_util_est {ex['hbm_bw_util_est']} outside (0, 1.05]")
+    # the Riccati headline and B = 1 chains launch nothing; the sentinel's dense
+    # Cholesky solve takes K4 every ADMM iteration; the bf16 chain K3 once a solve
+    cfg = ergocub_mpc_config()
+    want = {"spd_inverse": solves, "symv_packed": cfg.sqp_iters * cfg.admm_iters, "admm_fused": 0}
+    require(l_bench == want, f"apps.bench launches {l_bench}, expected {want}")
+
+    for which, per_solve in (("both", {"spd_inverse": 1, "symv_packed": cfg.sqp_iters * cfg.admm_iters,
+                                        "admm_fused": 0}),
+                             ("fused", {"spd_inverse": 1, "symv_packed": 0, "admm_fused": cfg.sqp_iters})):
+        t = time.perf_counter()
+        lines, launches = captured(bench_kkt.main, [which, "--reps", str(BENCH_REPS)])
+        for line in lines:
+            print(f"phase 13 apps.bench_kkt {which} B=512: {line} {tag}")
+        print(f"phase 13 apps.bench_kkt {which}: launches {launches} ({time.perf_counter() - t:.1f} s)")
+        want = {name: n * solves for name, n in per_solve.items()}  # "both": its riccati line launches nothing
+        require(launches == want, f"apps.bench_kkt {which} launches {launches}, expected {want}")
+        l_bench = {name: l_bench[name] + launches[name] for name in l_bench}
+
+    t = time.perf_counter()
+    lines, launches = captured(breakdown.main, ["--reps", str(BENCH_REPS)])
+    for line in lines:
+        print(f"phase 13 apps.breakdown B=512: {line} {tag}")
+    print(f"phase 13 apps.breakdown: launches {launches} ({time.perf_counter() - t:.1f} s)")
+    want = {"spd_inverse": 1 + BENCH_REPS, "symv_packed": 0, "admm_fused": 0}  # the inverse alone; Riccati solves
+    require(launches == want, f"apps.breakdown launches {launches}, expected {want}")
+    print(f"phase 13 took {time.perf_counter() - t_phase:.1f} s")
+    return {name: l_bench[name] + launches[name] for name in l_bench}
+
+
 def main():
     require(torch.cuda.is_available(), "no CUDA device: this smoke run needs a GPU")
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True,
-    ).stdout.strip().splitlines()[0]
+    t_start = time.perf_counter()
+    card = BENCH.device_name("cuda")
     print(f"card: {card}")
     print(f"torch {torch.__version__} cuda {torch.version.cuda}; tf32 matmul {torch.backends.cuda.matmul.allow_tf32}")
     tag = f"[{card}]"
@@ -1972,9 +2012,19 @@ def main():
     _build.library()
     print(f"phase 1 build: {len(_build.sources())} sources, nvcc {_build.build_seconds:.2f} s, "
           f"load {time.perf_counter() - t:.2f} s")
+    # whether torch.profiler records the card's work here (the profiles of
+    # phases 7-10 read "not measured" where it does not)
+    x = torch.ones(1 << 20, device=dev)
+    probe = device_time(lambda: x.sum())
+    PROFILER_RECORDS[0] = probe is not None
+    print("phase 1 profiler probe: " + (NOT_PROFILED if probe is None else
+                                        f"{probe[1]} kernels, {probe[0]:.4f} ms device recorded"))
+    if probe is None:  # what may hold CUPTI or configure the profiler here
+        env = sorted((k, v) for k, v in os.environ.items() if any(w in k for w in ("KINETO", "CUPTI", "INJECTION")))
+        print(f"phase 1 profiler environment: {env}")
 
     # --- 2. kernels vs plain twins on the card ------------------------------
-    M_real, qp4 = cold_linearisation(cfg_dense, make_params(cfg_dense, lateral([-1.0, 0.0, 0.6, 1.2])))
+    M_real, qp4 = cold_linearisation(cfg_dense, BENCH.make_params(cfg_dense, lateral([-1.0, 0.0, 0.6, 1.2])))
     gen = torch.Generator(device=dev).manual_seed(7)
     errs = {"spd_inverse": 0.0, "symv_packed": 0.0, "admm_fused": 0.0}
     for name, M in (("walking KKT", M_real), ("scaled random SPD", scaled_spd(4, 504, gen))):
@@ -2014,8 +2064,8 @@ def main():
     B512 = 512
     M512, qp512 = cold_linearisation(
         cfg_dense,
-        make_params(cfg_dense, lateral(torch.linspace(-1.0, 1.0, B512)),
-                    t0=T0 + cfg_dense.dt * (torch.arange(B512) % 8).float()),
+        params_at(cfg_dense, BENCH.lateral_pushes(B512),
+                  BENCH.T0 + cfg_dense.dt * (torch.arange(B512) % 8).float()),
     )
     Minv512 = K3.spd_inverse(M512)
     items = torch.arange(0, B512, B512 // 8, device=dev)
@@ -2031,7 +2081,7 @@ def main():
     k5_long = {}  # walking QPs at B = 4 of the horizons that take the other launches
     for T in K5_HORIZONS:
         cfg_T = ergocub_mpc_config(kkt_impl="dense", horizon=round(T * cfg_dense.dt, 6))
-        M_T, qp_T = cold_linearisation(cfg_T, make_params(cfg_T, lateral([-1.0, 0.0, 0.6, 1.2])))
+        M_T, qp_T = cold_linearisation(cfg_T, BENCH.make_params(cfg_T, lateral([-1.0, 0.0, 0.6, 1.2])))
         k5_long[T] = (torch.linalg.inv(M_T.double()).float().contiguous(), *qp_T)
         del M_T
     k5_cases = [("walking QPs", k5_args[4], tuple(ADMM_TOL)), ("walking QPs", k5_args[B512], tuple(ADMM_TOL)),
@@ -2071,11 +2121,11 @@ def main():
 
     # --- 6. numerics sentinel -----------------------------------------------
     pushes = [0.0, -1.0, 1.0, 1.2]
-    p_gpu = make_params(cfg_dense, lateral(pushes))
+    p_gpu = BENCH.make_params(cfg_dense, lateral(pushes))
     s_dense = dense.solve(p_gpu, dense.cold_start(4))
     s_fused = fused.solve(p_gpu, fused.cold_start(4))
     s_ric = ric.solve(p_gpu, ric.cold_start(4))
-    p_cpu = make_params(cfg_dense, lateral(pushes, device="cpu"), device="cpu")
+    p_cpu = BENCH.make_params(cfg_dense, lateral(pushes, device="cpu"), device="cpu")
     s_cpu = dense.solve(p_cpu, dense.cold_start(4, device="cpu"))
     for name, a, b in (("dense gpu vs dense cpu", s_dense, s_cpu), ("riccati gpu vs dense gpu", s_ric, s_dense),
                        ("fused gpu vs dense gpu", s_fused, s_dense), ("fused gpu vs riccati gpu", s_fused, s_ric)):
@@ -2105,6 +2155,9 @@ def main():
               f"(at item {int(dc.amax(0).argmax())})")
         require(bool((dc <= 0.005 * (b.abs() + 1.0)).all()), f"bench chain: dense (matmul) vs {name} disagree")
 
+    print(f"phases 1-6 took {time.perf_counter() - t_start:.1f} s")
+    t_phase = time.perf_counter()
+
     # --- 7. timings (not asserted) ------------------------------------------
     times, bounds = {}, {}
     for B in (1, B512):
@@ -2127,7 +2180,7 @@ def main():
     for (name, B), (ms, plain, lib) in times.items():
         b_ms, b_by, t_bytes, t_ops = bounds[(name, B)]
         lib_s = "none" if lib is None else f"{lib:.4f} ms"
-        rate = f", {b_ms * HBM_BYTES_PER_S / ms / 1e9:.1f} GB/s on the bound's bytes" if b_by == "bytes" else ""
+        rate = f", {b_ms * R.HBM_BYTES_PER_S / ms / 1e9:.1f} GB/s on the bound's bytes" if b_by == "bytes" else ""
         print(f"phase 7 time {name} B={B}: kernel {ms:.4f} ms, plain twin {plain:.4f} ms, library {lib_s}, "
               f"bound {b_ms:.4f} ms ({b_by}; bytes {t_bytes:.4f} ms, operations {t_ops:.4f} ms), kernel at "
               f"{100 * b_ms / ms:.1f} % of the bound{rate} {tag}")
@@ -2159,34 +2212,52 @@ def main():
                                         ("symv_packed", lambda: K4.symv_packed(pb, vb), K4_STAGES),
                                         ("admm_fused", lambda: K5.admm_fused(*ab, iters=ADMM_ITERS), K5_STAGES)):
             stages = profile_stages(fn, kernel_stages)
+            if stages is None:
+                print(f"phase 7 profile {name} B={B}: {NOT_PROFILED} {tag}")
+                continue
             total = sum(ms for _, ms in stages.values())
             for stage, (count, ms) in stages.items():
                 print(f"phase 7 profile {name} B={B} {stage}: {count} launches, {ms:.4f} ms device "
                       f"({100 * ms / total:.1f} %) {tag}")
         # the library call's device time beside K4's: at B = 1 both calls are set by the host
         dense_b = K4.unpack_symmetric(pb)
-        mm = [(key, count, ms) for key, count, ms in profile(lambda: torch.matmul(dense_b, vb[..., None]))
-              if ms > 0 and not key.startswith("aten::")]
-        print(f"phase 7 profile torch.matmul on the unpacked matrix B={B}: {sum(c for _, c, _ in mm)} launches "
-              f"({', '.join(key[:60] for key, _, _ in mm)}), {sum(ms for _, _, ms in mm):.4f} ms device {tag}")
+        for _ in range(PROFILE_PASSES):
+            mm = profile(lambda: torch.matmul(dense_b, vb[..., None]))
+            if mm:
+                break
+        print(f"phase 7 profile torch.matmul on the unpacked matrix B={B}: " + (
+            f"{sum(c for _, c, _ in mm)} launches ({', '.join(key[:60] for key, _, _ in mm)}), "
+            f"{sum(ms for _, _, ms in mm):.4f} ms device" if mm else NOT_PROFILED) + f" {tag}")
+    # the B = 512 x KB = 4 chains' rates are phase 13's (apps.bench_kkt)
     for name, solver, cfg in (("dense", dense, cfg_dense), ("fused", fused, cfg_fused), ("riccati", ric, cfg_ric)):
-        _, t1 = tick_chain(solver, cfg, ticks=20)
+        _, t1 = tick_chain(solver, cfg, ticks=WARM_TICKS)
         lat = np.array(t1[1:])  # warm-started ticks
-        _, _, s = bench_chain(solver, cfg)
         print(f"phase 7 time {name} B=1 warm tick: p50 {np.percentile(lat, 50):.2f} ms, "
               f"p90 {np.percentile(lat, 90):.2f} ms, max {lat.max():.2f} ms ({len(lat)} ticks) {tag}")
-        print(f"phase 7 time {name} B=512 x KB=4: {s:.3f} s, {512 * 4 / s:.1f} solves/s {tag}")
-        if name == "fused":  # its device time per warm solve against those wall times
-            for B, wall in ((1, float(np.percentile(lat, 50))), (B512, s * 1e3 / 4)):
-                params = make_params(cfg, lateral(torch.linspace(-1.0, 1.0, B) if B > 1 else [0.0]))
+        if name == "fused":  # its device time per warm solve against the wall of a warm solve
+            for B in (1, B512):
+                params = BENCH.make_params(cfg, BENCH.lateral_pushes(B) if B > 1 else lateral([0.0]))
                 warm = solver.warm_from(params, solver.solve(params, solver.cold_start(B)))
-                dev_ms, count, (key, top) = device_time(lambda: solver.solve(params, warm))
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                solver.solve(params, warm)
+                torch.cuda.synchronize()
+                wall = float(np.percentile(lat, 50)) if B == 1 else (time.perf_counter() - t) * 1e3
+                d = device_time(lambda: solver.solve(params, warm))
+                if d is None:
+                    print(f"phase 7 profile fused solve B={B}: {NOT_PROFILED} {tag}")
+                    continue
+                dev_ms, count, (key, top) = d
                 print(f"phase 7 profile fused solve B={B}: device {dev_ms:.3f} ms in {count} kernels, copies and "
-                      f"fills; wall {wall:.2f} ms (unprofiled, above), idle share {1 - dev_ms / wall:.3f}; largest "
-                      f"{key[:70]} {top:.3f} ms {tag}")
+                      f"fills; wall {wall:.2f} ms (unprofiled, {'the p50 above' if B == 1 else 'one warm solve'}), "
+                      f"idle share {1 - dev_ms / wall:.3f}; largest {key[:70]} {top:.3f} ms {tag}")
+
+    print(f"phase 7 took {time.perf_counter() - t_phase:.1f} s")
 
     # --- 8. joystick -> MANN -> MPC ----------------------------------------
+    t_phase = time.perf_counter()
     l_mann, mann_weights = phase_mann_mpc(tag)
+    print(f"phase 8 took {time.perf_counter() - t_phase:.1f} s")
 
     # --- 9. the closed loop -------------------------------------------------
     l_closed = phase_closed_loop(tag, mann_weights)
@@ -2200,6 +2271,10 @@ def main():
     # --- 12. the remaining entry points ---------------------------------------
     l_rest = phase_remaining(tag, cfg_dense)
 
+    # --- 13. the benchmark entry points ---------------------------------------
+    l_bench = phase_benchmarks(tag)
+    print(f"phases 1-13 took {time.perf_counter() - t_start:.1f} s")
+
     sources = {"spd_inverse": ("cmw_tpu_torch/csrc/spd_inverse.cu", "cmw_tpu/ops/spd_inverse.py:132"),
                "symv_packed": ("cmw_tpu_torch/csrc/symv.cu", "cmw_tpu/ops/symv.py:77"),
                "admm_fused": ("cmw_tpu_torch/csrc/admm_fused.cu", "cmw_tpu/ops/admm_fused.py:143")}
@@ -2210,7 +2285,7 @@ def main():
         record["kernels"].append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": (l_dense[name] + l_fused[name] + l_mann[name] + l_closed[name] + l_rigid[name] + l_sweep[name]
-                         + l_rest[name]),
+                         + l_rest[name] + l_bench[name]),
             "max_abs_err": errs[name],
             "ms": ms, "plain_ms": plain,
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib,

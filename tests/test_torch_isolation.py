@@ -4,9 +4,9 @@ step of the rigid-body plant, a push sweep at B = 2 over one MPC period, a
 checkpoint round trip, importing the command-line entry points, the ini
 loader, the oracle copies (the MPC's, the MANN generator's and its ONNX
 interpreter's), the parity CLI at a short horizon, the real-time walker's
-two tasks, the native runtime, the joypad, `entry()` and one scaling
-measurement on one gloo rank, loads neither `jax` nor the JAX package
-`cmw_tpu`."""
+two tasks, the native runtime, the joypad, `entry()`, one scaling
+measurement on one gloo rank, the benchmark entry points and one benchmark
+line at B = 2, loads neither `jax` nor the JAX package `cmw_tpu`."""
 
 import os
 import subprocess
@@ -99,6 +99,13 @@ assert native.Mailbox().read() == (0, b"") and joypad.TerminalJoypad(lambda *a: 
 fn, args = entry.entry(device="cpu")
 assert bool(torch.isfinite(fn(*args).cost).all())
 assert scaling.measure(1, 1, 1, 1, device="cpu") > 0
+import contextlib, io, json
+from cmw_tpu_torch.apps import bench, bench_kkt, breakdown
+
+out = io.StringIO()
+with contextlib.redirect_stdout(out):
+    bench.main(["--cpu", "--batch", "2", "--reps", "1"])
+assert json.loads(out.getvalue())["extra"]["device"] == "cpu"
 loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "cmw_tpu"))
 print("LOADED", loaded)
 assert not loaded, loaded

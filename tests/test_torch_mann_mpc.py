@@ -1,10 +1,12 @@
 """Port parity for the MPC tick of the walking controller, joystick -> MANN ->
 MPC (cmw_tpu/runtime/loop.py:508-1053 on the kinematic plant, while
-moving): `chip_smoke.mpc_tick` on the port against the same seven steps
-composed from `cmw_tpu` under `jax.vmap`, at ergocub_mpc_config(horizon=0.6)
-on the default (Riccati) path, f32 on the CPU. Two receding ticks from the
-walk-ready start, each package carrying its own chain; on the synthetic
-weights and on the variant whose left foot swings."""
+moving): the port's `WalkingController._mpc_stage` against the same seven
+steps composed from `cmw_tpu` under `jax.vmap`, at
+ergocub_mpc_config(horizon=0.6) on the default (Riccati) path, f32 on the
+CPU. Two receding ticks from the controller's `initial_state` at the
+walk-ready pose, each package carrying its own chain (the port's state one
+MPC period on by `chip_smoke.coast`, as chip_smoke.py's phase 8 drives it);
+on the synthetic weights and on the variant whose left foot swings."""
 
 import dataclasses
 
@@ -24,8 +26,10 @@ from cmw_tpu.core.splines import linear_spline
 from cmw_tpu.mann import generator as JG
 from cmw_tpu.mann import input_builder as JIB
 from cmw_tpu_torch import convert
-from cmw_tpu_torch.cmpc import CentroidalMPCSolver
-from cmw_tpu_torch.mann import generator as TG
+from cmw_tpu_torch.core import contacts as TC
+from cmw_tpu_torch.core import kinematics as TK
+from cmw_tpu_torch.runtime import config as TCfg
+from cmw_tpu_torch.runtime import loop as TL
 from test_torch_mann import WEIGHTS, _jax_weights
 from test_torch_solver import COST_RTOL, FORCE_ATOL, POS_ATOL, PRIM_MAX
 
@@ -36,13 +40,17 @@ REF_ATOL = 1e-5  # references and footstep poses from two f32 generator rollouts
 # snap_to_grid's t / dt: under jit, XLA multiplies by the reciprocal of the
 # constant instead, an f32 ulp away (64 s on an open phase's BIG_TIME)
 TIME_RTOL = 2e-7
+# the port's next x9 (mpc_every RK4 steps under the held forces, as the WBC
+# ticks integrate it) against JAX's predicted state (the exact discrete map):
+# the same polynomial motion, summed in another order in f32 (gap ~2e-7)
+X9_ATOL = 1e-5
 
 
 def _np(tree):
     return jax.tree_util.tree_map(np.asarray, tree)
 
 
-def jax_tick(jm, solver, gcfg, adv, w, gen_state, plan, warm, x0, t, joy, com_z_ref):
+def jax_tick(jm, solver, gcfg, adv, phases, w, gen_state, plan, warm, x0, t, joy, com_z_ref):
     """The seven steps for one item, in cmw_tpu (loop.py line by line)."""
     mpc = solver.cfg
     dtype = x0.dtype
@@ -54,8 +62,7 @@ def jax_tick(jm, solver, gcfg, adv, w, gen_state, plan, warm, x0, t, joy, com_z_
     pose_tl = jnp.concatenate([gen_state.foot_pose_xy_yaw[None], outs.foot_pose_xy_yaw], axis=0)
     tl_times = t + jnp.concatenate([jnp.zeros(1, dtype), gen_times])
     foot_pos = jnp.concatenate([pose_tl[..., 0:2], jnp.zeros(pose_tl.shape[:-1] + (1,), dtype)], axis=-1)
-    mann_plan = JC.plan_from_timeline(flags, tl_times, foot_pos, JL.rotz(pose_tl[..., 2]),
-                                      P=chip_smoke.PLAN_PHASES)
+    mann_plan = JC.plan_from_timeline(flags, tl_times, foot_pos, JL.rotz(pose_tl[..., 2]), P=phases)
     knot_times = jnp.arange(mpc.N, dtype=dtype) * mpc.dt  # :765, 831 (a call tick: offset 0)
     com_ref, _ = linear_spline(gen_times, outs.com, knot_times)
     com_ref = com_ref.at[:, 2].set(com_z_ref)  # :833
@@ -67,7 +74,7 @@ def jax_tick(jm, solver, gcfg, adv, w, gen_state, plan, warm, x0, t, joy, com_z_
                           ext_torque=jnp.zeros(3, dtype))
     sol = solver.solve(params, warm)
     plan = JC.write_back_adjusted(plan, t, mpc.n_slots, sol.positions, stage.slot_valid)  # :1012
-    return (gen_next, plan, solver.warm_from(params, sol), sol.states[1], t + mpc.dt), sol, params
+    return (gen_next, plan, solver.warm_from(params, sol), sol.states[1], t + mpc.dt), sol, params, outs
 
 
 @pytest.fixture(scope="module")
@@ -75,51 +82,78 @@ def setup():
     jm = JK.ergocub_urdf()
     tm = convert.robot_model_from_numpy(jm)
     jcfg = JF.ergocub_mpc_config(horizon=0.6)
-    js, ts = JaxSolver(jcfg), CentroidalMPCSolver(convert.config_from_dict(dataclasses.asdict(jcfg)))
+    js = JaxSolver(jcfg)
+    wcfg = TCfg.ergocub_gazebo_v1(mpc=convert.config_from_dict(dataclasses.asdict(jcfg)))
     gcfg = JG.GeneratorConfig()
-    adv = chip_smoke.mann_advance(gcfg, jcfg.dt)
-    tick = jax.jit(jax.vmap(lambda w, *a: jax_tick(jm, js, gcfg, adv, w, *a),
+    assert dataclasses.asdict(gcfg) == dataclasses.asdict(wcfg.gen)
+    tick = jax.jit(jax.vmap(lambda w, *a: jax_tick(jm, js, gcfg, wcfg.mann_advance, wcfg.plan_phases, w, *a),
                             in_axes=(None, 0, 0, 0, 0, 0, 0, 0)))
-    return jm, tm, js, ts, adv, tick
+    return tm, js, wcfg, tick
 
 
 @pytest.mark.parametrize("wname", list(WEIGHTS))
 def test_mann_mpc_ticks_match_jax(setup, wname):
-    jm, tm, js, ts, adv, tick = setup
+    tm, js, wcfg, tick = setup
     W = WEIGHTS[wname]
-    tw = convert.mann_weights_from_numpy(W, device="cpu")
+    ctl = TL.WalkingController(wcfg, tm, convert.mann_weights_from_numpy(W, device="cpu"), device="cpu")
+    mpc = wcfg.mpc
     joy = chip_smoke.joysticks(B, device="cpu")
-    chain, z_ref = chip_smoke.walk_ready_chain(ts, tm, TG.GeneratorConfig(), B, device="cpu")
-    # the JAX side starts from the same chain
-    jchain = (JG.GeneratorState(**convert.generator_state_to_numpy(chain.gen)),
-              JC.ContactPlan(**convert.solution_to_numpy(chain.plan)),
-              jax.vmap(lambda _: js.cold_start())(jnp.arange(B)), chain.x0.numpy(), chain.t.numpy())
+    zeros = torch.zeros(B, 3)
+    # the stage's own solver call, recorded: the full [B, N, 3] references it solves on
+    seen = []
+    solve = ctl.solver.solve
+    ctl.solver.solve = lambda params, warm: seen.append(params) or solve(params, warm)
+    s = ctl.initial_state(B, *TK.walk_ready_pose())
+    # the JAX side starts from the same state
+    jchain = (JG.GeneratorState(**convert.generator_state_to_numpy(s.gen_state)),
+              JC.ContactPlan(**convert.solution_to_numpy(s.plan)),
+              jax.vmap(lambda _: js.cold_start())(jnp.arange(B)), s.x9.numpy(), s.t.numpy())
     jw = _jax_weights(W, jnp.float32)
     for k in range(2):
-        chain, sol, params = chip_smoke.mpc_tick(ts, TG.GeneratorConfig(), tm, tw, chain, joy, z_ref, adv)
-        jchain, jsol, jparams = tick(jw, *jchain, joy.numpy(), z_ref.numpy())
-        g, w = convert.solution_to_numpy(sol), _np(jsol)._asdict()
-        np.testing.assert_allclose(g["cost"], w["cost"], rtol=COST_RTOL, err_msg=f"tick {k}")
-        assert g["prim_res"].max() < PRIM_MAX and w["prim_res"].max() < PRIM_MAX
-        np.testing.assert_allclose(g["forces"], w["forces"], atol=FORCE_ATOL, err_msg=f"tick {k}")
-        np.testing.assert_allclose(g["positions"], w["positions"], atol=POS_ATOL, err_msg=f"tick {k}")
-        np.testing.assert_allclose(params.com_ref.numpy(), np.asarray(jparams.com_ref), atol=REF_ATOL)
-        np.testing.assert_allclose(params.ang_mom_ref.numpy(), np.asarray(jparams.ang_mom_ref), atol=REF_ATOL)
+        t = s.t
+        s = ctl._mpc_stage(s, TL.TickInput(joy, zeros, zeros))
+        jchain, jsol, jparams, jouts = tick(jw, *jchain, joy.numpy(), s.com_z_ref.numpy())
+        (params,) = seen
+        seen.clear()
+        w = _np(jsol)._asdict()
+        np.testing.assert_allclose(s.mpc_cost.numpy(), w["cost"], rtol=COST_RTOL, err_msg=f"tick {k}")
+        assert s.mpc_prim.max() < PRIM_MAX and w["prim_res"].max() < PRIM_MAX
+        np.testing.assert_allclose(s.forces0.numpy(), w["forces"][:, 0], atol=FORCE_ATOL, err_msg=f"tick {k}")
+        nf = mpc.n_forces
+        np.testing.assert_allclose(s.warm.z.numpy()[:, :nf], w["z"][:, :nf], atol=FORCE_ATOL, err_msg=f"tick {k}")
+        np.testing.assert_allclose(s.warm.z.numpy()[:, nf:], w["z"][:, nf:], atol=POS_ATOL, err_msg=f"tick {k}")
+        # the MANN rollout the stage stored, and its frequency adapters at all N knots
+        np.testing.assert_allclose(s.mann.com.numpy(), np.asarray(jouts.com), atol=REF_ATOL, err_msg=f"tick {k}")
+        np.testing.assert_allclose(s.mann.ang_mom.numpy(), np.asarray(jouts.ang_mom), atol=REF_ATOL,
+                                   err_msg=f"tick {k}")
+        np.testing.assert_allclose(params.com_ref.numpy(), np.asarray(jparams.com_ref), atol=REF_ATOL,
+                                   err_msg=f"tick {k}")
+        np.testing.assert_allclose(params.ang_mom_ref.numpy(), np.asarray(jparams.ang_mom_ref), atol=REF_ATOL,
+                                   err_msg=f"tick {k}")
+        np.testing.assert_array_equal(s.com_mann.numpy(), params.com_ref.numpy()[:, 0])
+        np.testing.assert_array_equal(s.ang_mom_mann.numpy(), params.ang_mom_ref.numpy()[:, 0])
+        # the solve's stage; the write-back moves the plan's positions, not its phases
+        stage = params.stage
+        np.testing.assert_array_equal(TC.mpc_stage_params(s.plan, t, mpc.T, mpc.dt, mpc.n_slots).active.numpy(),
+                                      stage.active.numpy())
         for name in ("active", "slot_onehot", "slot_valid", "slot_adjustable"):
-            np.testing.assert_array_equal(getattr(params.stage, name).numpy(), np.asarray(getattr(jparams.stage, name)),
+            np.testing.assert_array_equal(getattr(stage, name).numpy(), np.asarray(getattr(jparams.stage, name)),
                                           err_msg=f"tick {k} {name}")
         for name in ("slot_act", "slot_deact"):
-            np.testing.assert_allclose(getattr(params.stage, name).numpy(), np.asarray(getattr(jparams.stage, name)),
+            np.testing.assert_allclose(getattr(stage, name).numpy(), np.asarray(getattr(jparams.stage, name)),
                                        rtol=TIME_RTOL, atol=0, err_msg=f"tick {k} {name}")
+        np.testing.assert_array_equal(s.warm.slot_act.numpy(), np.asarray(jparams.stage.slot_act))
         # the next chain: the re-rooted generator state, the written-back plan
         jgen, jplan = _np(jchain[0]), _np(jchain[1])
-        np.testing.assert_array_equal(chain.gen.contact.numpy(), jgen.contact)
-        np.testing.assert_allclose(chain.gen.q.numpy(), jgen.q, atol=REF_ATOL)
-        np.testing.assert_array_equal(chain.plan.valid.numpy(), jplan.valid)
+        np.testing.assert_array_equal(s.gen_state.contact.numpy(), jgen.contact)
+        np.testing.assert_allclose(s.gen_state.q.numpy(), jgen.q, atol=REF_ATOL)
+        np.testing.assert_array_equal(s.plan.valid.numpy(), jplan.valid)
         for name in ("act", "deact"):
-            np.testing.assert_allclose(getattr(chain.plan, name).numpy(), getattr(jplan, name), rtol=TIME_RTOL, atol=0,
+            np.testing.assert_allclose(getattr(s.plan, name).numpy(), getattr(jplan, name), rtol=TIME_RTOL, atol=0,
                                        err_msg=name)
-        np.testing.assert_allclose(chain.plan.pos.numpy(), jplan.pos, atol=POS_ATOL)
-        np.testing.assert_allclose(chain.t.numpy(), np.asarray(jchain[4]), rtol=0, atol=0)
+        np.testing.assert_allclose(s.plan.pos.numpy(), jplan.pos, atol=POS_ATOL)
+        s = chip_smoke.coast(ctl, s)
+        np.testing.assert_allclose(s.t.numpy(), np.asarray(jchain[4]), rtol=0, atol=0)
+        np.testing.assert_allclose(s.x9.numpy(), np.asarray(jchain[3]), rtol=0, atol=X9_ATOL)
     if wname == "lift":  # the left foot swings: one contact on the later intervals
-        assert float(params.stage.active[:, 0, 1:].max()) == 0.0 and float(params.stage.active[:, 1].min()) == 1.0
+        assert float(stage.active[:, 0, 1:].max()) == 0.0 and float(stage.active[:, 1].min()) == 1.0

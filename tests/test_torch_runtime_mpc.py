@@ -5,8 +5,6 @@ runtime's remaining surface:
     from the same converted states of a JAX float32 episode on the lifted
     synthetic weights, in double support (tick 0) and with the left foot
     swinging (tick 30), within the solver tests' tolerances;
-  - the same stage against `chip_smoke.mpc_tick`, the seven steps composed
-    by hand: they agree exactly;
   - the ergocub_sn000 preset (slow-down 5, wbc_dt 0.005) and, with
     ergoCubSN001's 60 ms MPC, the generator called every 5th MPC tick and
     its stored output re-sliced on the ticks between;
@@ -137,29 +135,6 @@ def test_mpc_stage_stand_mode_and_slew_match_jax(rig):
     # item 0's slewed stick moved 1 x mpc dt toward the reversed command
     step = np.abs(got["joypad_lp"][0, 0:2] - state.joypad_lp[0, 0:2]).max()
     assert step == pytest.approx(rig["tctl"].cfg.mpc.dt, rel=1e-5)
-
-
-@pytest.mark.parametrize("tick", [0, 30])
-def test_mpc_stage_is_mpc_tick(rig, tick):
-    """On a generator-call tick the controller's MPC stage and
-    chip_smoke.mpc_tick (the same seven steps composed by hand) agree
-    exactly: references, plan, solution, next generator state."""
-    tctl = rig["tctl"]
-    s = convert.loop_state_from_numpy(rig["pre"][tick]._asdict(), device="cpu", dtype=torch.float32)
-    nxt = tctl._mpc_stage(s, rig["tinp"])
-    chain = chip_smoke.Chain(t=s.t, gen=s.gen_state, plan=s.plan, warm=s.warm, x0=s.x9)
-    cfg = tctl.cfg
-    c_next, sol, params = chip_smoke.mpc_tick(tctl.solver, cfg.gen, tctl.model, tctl._weights_as(s.x9), chain,
-                                              rig["tinp"].joypad, s.com_z_ref, cfg.mann_advance)
-    assert cfg.mann_advance == chip_smoke.mann_advance(cfg.gen, cfg.mpc.dt)
-    pairs = [("forces0", nxt.forces0, sol.forces[:, 0]), ("cost", nxt.mpc_cost, sol.cost),
-             ("com_mann", nxt.com_mann, params.com_ref[:, 0]), ("ang_mom_mann", nxt.ang_mom_mann,
-                                                                 params.ang_mom_ref[:, 0])]
-    pairs += [(f"plan.{n}", a, b) for n, a, b in zip(nxt.plan._fields, nxt.plan, c_next.plan)]
-    pairs += [(f"warm.{n}", a, b) for n, a, b in zip(nxt.warm._fields, nxt.warm, c_next.warm)]
-    pairs += [(f"gen.{n}", a, b) for n, a, b in zip(nxt.gen_state._fields, nxt.gen_state, c_next.gen)]
-    for name, a, b in pairs:
-        assert torch.equal(a, b), name
 
 
 # --- ergoCubSN000 / SN001 timing ------------------------------------------------
