@@ -50,7 +50,9 @@ calls, alone and fed by the MANN trajectory generator, and checks it:
   7. timings (printed, not asserted): each kernel at B = 1 and B = 512 beside
      its bound (and, where bytes set it, the rate reached on those bytes),
      its plain twin and, where one exists, the one PyTorch call
-     that computes the same function, and K5 at the longer horizons; one
+     that computes the same function (K3's two on PyTorch's default linalg
+     backend, as before the graphs, and on cuSOLVER, the package's setting,
+     beside them), and K5 at the longer horizons; one
      torch.profiler pass over an SPD inverse, a packed symv and a fused ADMM
      call at B = 1 and at B = 512, with the device time and count of each of
      its kernels, and the device time of torch.matmul on the unpacked matrix
@@ -111,7 +113,9 @@ calls, alone and fed by the MANN trajectory generator, and checks it:
      at B = 1 split by a checkpoint (--save-state, --resume-state) ending
      where the straight run ends (bitwise, else within CLOSED_TOL), its
      telemetry files loading; printed: the sweep's wall and scenario-s/s,
-     the survivors and the recoverable-push radii;
+     the survivors and the recoverable-push radii, and the graph pool the
+     sweep's own graphs hold at its end (the cache cleared before it; the
+     CLI clears it after its arm, held);
  12. the remaining entry points, each part with its wall: the dense KKT's
      bf16 option (kkt_dtype="bf16", kkt_f32_tail in BF16_TAILS) as the
      B = 512 x KB = 4 chain, its solves/s beside the f32 dense chain's, and
@@ -132,7 +136,29 @@ calls, alone and fed by the MANN trajectory generator, and checks it:
      `apps.bench_kkt` both and fused; `apps.breakdown`; each call's launches
      held exactly (the Riccati headline none, dense K3 once and K4
      sqp x admm times a solve, fused K5 sqp times a solve and K4 never).
-     BENCH_REPS and BENCH_SAMPLES cut the CLIs' repetitions for time.
+     BENCH_REPS and BENCH_SAMPLES cut the CLIs' repetitions for time;
+ 14. the compiled dispatch (`runtime/cache.py`): every graphed function
+     replayed against itself under `disable_graphs()` on the same inputs
+     (a replay copies them into its static buffers): the solve
+     on the Riccati, dense and fused paths at B in GRAPH_SOLVE_B, the bench
+     chain (B = 512 x KB = 4), `dynamics_step` at B = 1 (the settle's) and
+     256 (pushed), `_wbc_stage` on the kinematic and the rigid plant at B = 1
+     and 256, and on both plants GRAPH_TICKS ticks (an MPC stage and its
+     WBC ticks) replayed after GRAPH_TICKS eager ones, against the same
+     ticks run eagerly: bitwise, else within GRAPH_RTOL; the wrappers'
+     counts of a replay (the graph's record of its capture) equal eager's,
+     and the replay's trace holds that many calls' worth of each wrapper's
+     csrc kernels, counted by their names (HAND_KERNELS; the kernels a call
+     from phase 7's profile of one call, else read off an eager call's
+     trace); printed: the capture
+     seconds, the eager wall and the replay wall p50, the replay's device
+     time and the idle shares, the graph pool's memory.
+
+On the card the solve, the bench chain, `dynamics_step` and the WBC stage
+replay cached CUDA graphs wherever phases 1-13 call them (the rigid settle,
+the episodes, the CLIs); the timed ticks and stages of phases 7-10 and
+every span profile run under `disable_graphs()` (a replay has no spans), as
+they ran before the graphs. A capture or replay failure raises.
 
 It imports nothing of JAX. Without a CUDA device it fails. The last two
 lines are the kernels' JSON record and {"ok": true, "device": {...}}.
@@ -146,6 +172,7 @@ import io
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -174,6 +201,7 @@ from cmw_tpu_torch.ops import admm_fused as K5
 from cmw_tpu_torch.ops import roofline as R
 from cmw_tpu_torch.ops import spd_inverse as K3
 from cmw_tpu_torch.ops import symv as K4
+from cmw_tpu_torch.runtime import cache as RC
 from cmw_tpu_torch.runtime import checkpoint
 from cmw_tpu_torch.runtime import loop as RL
 from cmw_tpu_torch.runtime import telemetry as RT
@@ -272,6 +300,20 @@ def cold_linearisation(cfg, params):
 def resid(M, X):
     eye = torch.eye(M.shape[-1], device=M.device, dtype=torch.float64)
     return float((eye - M.double() @ X.double()).abs().max())
+
+
+@contextlib.contextmanager
+def linalg_backend(name):
+    """torch.backends.cuda.preferred_linalg_library(name) inside the body.
+    The package prefers cuSOLVER (`cmw_tpu_torch/__init__.py`: MAGMA's batched
+    LU cannot be captured); the K3 twin's and torch.linalg.inv's times on the
+    kernel line are taken on PyTorch's default, as they were before."""
+    before = torch.backends.cuda.preferred_linalg_library()
+    torch.backends.cuda.preferred_linalg_library(name)
+    try:
+        yield
+    finally:
+        torch.backends.cuda.preferred_linalg_library(before)
 
 
 def cuda_ms(fn, reps):
@@ -377,16 +419,28 @@ def profile(fn):
     return [(key, count, ms) for key, (count, ms) in rows.items()]
 
 
-def device_time(fn):
-    """(device ms of every kernel, copy and fill one call of `fn` ran, their
-    count, (name, ms) of the largest), or None where PROFILE_PASSES passes
-    kept none."""
+def traced(fn):
+    """profile(fn)'s rows from the first of PROFILE_PASSES passes that kept
+    the whole call, or None."""
     for _ in range(PROFILE_PASSES):
         rows = profile(fn)
         if rows:
-            key, _, top = max(rows, key=lambda r: r[2])
-            return sum(ms for _, _, ms in rows), sum(count for _, count, _ in rows), (key, top)
+            return rows
     return None
+
+
+def device_total(rows):
+    """(device ms of every kernel, copy and fill in a profile's rows, their
+    count, (name, ms) of the largest)."""
+    key, _, top = max(rows, key=lambda r: r[2])
+    return sum(ms for _, _, ms in rows), sum(count for _, count, _ in rows), (key, top)
+
+
+def device_time(fn):
+    """device_total of one call of `fn`, or None where PROFILE_PASSES passes
+    kept none."""
+    rows = traced(fn)
+    return None if rows is None else device_total(rows)
 
 
 def profile_stages(fn, stages):
@@ -819,7 +873,8 @@ def phase_mann_mpc(tag):
     for k in range(RECEDING_TICKS):
         torch.cuda.synchronize()
         t = time.perf_counter()
-        s = fused._mpc_stage(s, inp1)
+        with RC.disable_graphs():  # timed eagerly, as before the graphs
+            s = fused._mpc_stage(s, inp1)
         torch.cuda.synchronize()
         t_tick.append((time.perf_counter() - t) * 1e3)
         n_fused += 1
@@ -835,8 +890,9 @@ def phase_mann_mpc(tag):
     require(launches["spd_inverse"] > 0 and launches["admm_fused"] == cfg_fused.sqp_iters * n_fused,
             f"MANN -> MPC launches {launches}, expected admm_fused {cfg_fused.sqp_iters} x {n_fused} fused solves")
     lat = np.array(t_tick[1:])
-    print(f"phase 8 time MANN -> MPC fused B=1 MPC stage (generator + solve, warm): p50 {np.percentile(lat, 50):.1f} "
-          f"ms, p90 {np.percentile(lat, 90):.1f} ms, max {lat.max():.1f} ms ({len(lat)} stages) {tag}")
+    print(f"phase 8 time MANN -> MPC fused B=1 MPC stage (generator + solve, warm, eager): p50 "
+          f"{np.percentile(lat, 50):.1f} ms, p90 {np.percentile(lat, 90):.1f} ms, max {lat.max():.1f} ms "
+          f"({len(lat)} stages) {tag}")
     return launches, weights
 
 
@@ -1070,13 +1126,16 @@ def phase_closed_loop(tag, weights, dev="cuda"):
           f"flags identical on all {S} ticks, first MPC period largest gap {gap_l:.2e} ({chan_l}) {tag}")
 
     # --- times: WBC ticks alone, the MPC stage, an MPC period by span ---------
+    # eager, as before the graphs (the replays are phase 14's)
     inp1 = RL.TickInput(*(a[:, 0] for a in inputs))
     inp256 = RL.TickInput(*(a[:, 0] for a in tick_inputs(joy, 1)))
-    _, w1, sync1 = wbc_walls(ctl, s_end, inp1, 29)
-    _, w256, sync256 = wbc_walls(ctl_l, s60, inp256, 29)
+    with RC.disable_graphs():
+        _, w1, sync1 = wbc_walls(ctl, s_end, inp1, 29)
+        _, w256, sync256 = wbc_walls(ctl_l, s60, inp256, 29)
     for B, w, n_sync in ((1, w1, sync1), (256, w256, sync256)):
-        print(f"phase 9 time WBC tick B={B}: p50 {np.percentile(w, 50):.2f} ms, p90 {np.percentile(w, 90):.2f} ms, "
-              f"max {w.max():.2f} ms ({len(w)} ticks, wall, synchronised, sync debug mode off); operations that "
+        print(f"phase 9 time WBC tick B={B} (eager): p50 {np.percentile(w, 50):.2f} ms, p90 "
+              f"{np.percentile(w, 90):.2f} ms, max {w.max():.2f} ms ({len(w)} ticks, wall, synchronised, sync debug "
+              f"mode off); operations that "
               f"waited for the card in 3 ticks under the mode: {sum(n_sync.values())} {n_sync or ''} {tag}")
         require(not n_sync, f"WBC tick B={B}: operations waited for the card: {n_sync}")
     for B, c, s_at, inp in ((1, ctl, s_end, inp1), (256, ctl_l, s60, inp256)):
@@ -1084,24 +1143,27 @@ def phase_closed_loop(tag, weights, dev="cuda"):
         for _ in range(3):
             torch.cuda.synchronize()
             t = time.perf_counter()
-            c._mpc_stage(s_at, inp)
+            with RC.disable_graphs():
+                c._mpc_stage(s_at, inp)
             torch.cuda.synchronize()
             walls.append((time.perf_counter() - t) * 1e3)
-        print(f"phase 9 time MPC stage B={B} (generator call + fused solve + glue): "
+        print(f"phase 9 time MPC stage B={B} (generator call + fused solve + glue, eager): "
               f"{', '.join(f'{x:.1f}' for x in walls)} ms (wall, 3 calls) {tag}")
     period_in = tick_inputs(joy, every)
-    mpc_period(ctl_l, s60, period_in, S)  # warm
-    torch.cuda.synchronize()
-    t = time.perf_counter()
-    mpc_period(ctl_l, s60, period_in, S)
-    torch.cuda.synchronize()
-    period_wall = (time.perf_counter() - t) * 1e3
-    prof = span_profile(lambda: mpc_period(ctl_l, s60, period_in, S))
+    with RC.disable_graphs():  # a replay has no spans
+        mpc_period(ctl_l, s60, period_in, S)  # warm
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        mpc_period(ctl_l, s60, period_in, S)
+        torch.cuda.synchronize()
+        period_wall = (time.perf_counter() - t) * 1e3
+        prof = span_profile(lambda: mpc_period(ctl_l, s60, period_in, S))
     if prof is None:
-        print(f"phase 9 profile MPC period B=256: wall {period_wall:.1f} ms (unprofiled); device {NOT_PROFILED} {tag}")
+        print(f"phase 9 profile MPC period B=256 (eager): wall {period_wall:.1f} ms (unprofiled); device "
+              f"{NOT_PROFILED} {tag}")
     else:
         spans, (dev_ms, kernels) = prof
-        print(f"phase 9 profile MPC period B=256 ({every} ticks: 1 MPC stage + {every} WBC stages): wall "
+        print(f"phase 9 profile MPC period B=256 (eager, {every} ticks: 1 MPC stage + {every} WBC stages): wall "
               f"{period_wall:.1f} ms (unprofiled), device {dev_ms:.3f} ms in {kernels} kernels, idle share "
               f"{1 - dev_ms / period_wall:.3f} {tag}")
         for name, (ms, count, host) in spans.items():
@@ -1443,12 +1505,14 @@ def phase_rigid_loop(tag, dev="cuda"):
     inp1 = RL.TickInput(*(a[:, 0] for a in tick_inputs(stand, 1)))
     inp256 = RL.TickInput(*(a[:, 0] for a in tick_inputs(joy, 1)))
     for b, c, s_at, inp in ((1, ctl, s_stand, inp1), (B, ctl_l, s60, inp256)):
-        _, w, n_sync = wbc_walls(c, s_at, inp, RIGID_WALL_TICKS)
-        d = device_time(lambda: c._wbc_stage(s_at, inp))
+        with RC.disable_graphs():  # eager, as before the graphs (the replays are phase 14's)
+            _, w, n_sync = wbc_walls(c, s_at, inp, RIGID_WALL_TICKS)
+            d = device_time(lambda: c._wbc_stage(s_at, inp))
         profiled = NOT_PROFILED if d is None else (f"{d[1]} kernels, copies and fills, device {d[0]:.3f} ms, largest "
                                                    f"{d[2][0][:60]} {d[2][1]:.3f} ms")
-        print(f"phase 10 time rigid WBC tick B={b}: p50 {np.percentile(w, 50):.2f} ms, p90 {np.percentile(w, 90):.2f} "
-              f"ms, max {w.max():.2f} ms ({len(w)} ticks, wall, synchronised, sync debug mode off); one tick "
+        print(f"phase 10 time rigid WBC tick B={b} (eager): p50 {np.percentile(w, 50):.2f} ms, p90 "
+              f"{np.percentile(w, 90):.2f} ms, max {w.max():.2f} ms ({len(w)} ticks, wall, synchronised, sync debug "
+              f"mode off); one tick "
               f"profiled: {profiled}; operations that waited for the card in 3 ticks under the mode: "
               f"{sum(n_sync.values())} {n_sync or ''} {tag}")
         require(not n_sync, f"rigid WBC tick B={b}: operations waited for the card: {n_sync}")
@@ -1456,16 +1520,17 @@ def phase_rigid_loop(tag, dev="cuda"):
     # tick's, where the rigid plant sits (a whole rigid period took a minute
     # under the profiler)
     t = time.perf_counter()
-    prof = span_profile(lambda: ctl_l._wbc_stage(s60, inp256))
+    with RC.disable_graphs():  # a replay has no spans
+        prof = span_profile(lambda: ctl_l._wbc_stage(s60, inp256))
     print(f"phase 10 profile pass {time.perf_counter() - t:.1f} s")
     tick_wall = float(np.percentile(w, 50))  # the B = 256 ticks' p50 above
     if prof is None:
-        print(f"phase 10 profile rigid WBC tick B={B}: wall {tick_wall:.1f} ms (unprofiled p50); device {NOT_PROFILED} "
-              f"{tag}")
+        print(f"phase 10 profile rigid WBC tick B={B} (eager): wall {tick_wall:.1f} ms (unprofiled p50); device "
+              f"{NOT_PROFILED} {tag}")
     else:
         spans, (dev_ms, kernels) = prof
-        print(f"phase 10 profile rigid WBC tick B={B}: wall {tick_wall:.1f} ms (unprofiled p50), device {dev_ms:.3f} "
-              f"ms in {kernels} kernels, idle share {1 - dev_ms / tick_wall:.3f} {tag}")
+        print(f"phase 10 profile rigid WBC tick B={B} (eager): wall {tick_wall:.1f} ms (unprofiled p50), device "
+              f"{dev_ms:.3f} ms in {kernels} kernels, idle share {1 - dev_ms / tick_wall:.3f} {tag}")
         for name, (ms, count, host) in spans.items():
             print(f"phase 10 profile rigid WBC tick B={B} span {name}: device {ms:.3f} ms ({100 * ms / dev_ms:.1f} %), "
                   f"{count} kernels, host {host:.1f} ms under the profiler {tag}")
@@ -1514,11 +1579,13 @@ def recorded_sweep(run: bool = True):
     of a sweep). With run False, run_sweep only records (and returns {})."""
     from cmw_tpu_torch.apps import sweep as sweep_app
 
-    rec, real_run, real_metrics = {"calls": [], "metrics": []}, sweep_app.run_sweep, DS._episode_metrics
+    rec, real_run, real_metrics = {"calls": [], "metrics": [], "pool": []}, sweep_app.run_sweep, DS._episode_metrics
 
     def recording_run(ctl, **kw):
         rec["calls"].append((ctl, kw))
-        return real_run(ctl, **kw) if run else {}
+        out = real_run(ctl, **kw) if run else {}
+        rec["pool"].append((RC.pool_bytes(), len(RC.entries())))  # before the CLI clears the arm's graphs
+        return out
 
     def recording_metrics(*args):
         rec["metrics"].append(real_metrics(*args))
@@ -1673,6 +1740,7 @@ def phase_sweep(tag):
         with beside("sweep_reference", mann, reference) as ref:
             # --- 512 scenarios through the CLI ----------------------------------
             printed = io.StringIO()
+            RC.clear()  # the pool holds the sweep's graphs alone
             zero_launches()
             t = time.perf_counter()
             with recorded_sweep() as rec, contextlib.redirect_stdout(printed):
@@ -1695,6 +1763,11 @@ def phase_sweep(tag):
               f"(survival_rate {out['survival_rate']}), mean_supp_dev {out['mean_supp_dev']}, max_supp_dev "
               f"{out['max_supp_dev']}, recoverable push x {out['recoverable_push_x']} y {out['recoverable_push_y']} "
               f"m/s^2 {tag}")
+        pool, graphs = rec["pool"][0]
+        require(not RC.entries(), "the sweep CLI left its graphs in the cache")
+        print(f"phase 11 sweep CLI graph pool at its end: {pool / 2**20:.0f} MiB in {graphs} graphs (B {SWEEP_B}, "
+              f"chunks of {SWEEP_CHUNK}); cache.clear() after the arm left {len(RC.entries())} graphs, device memory "
+              f"reserved {torch.cuda.memory_reserved() / 2**20:.0f} MiB {tag}")
 
         # --- the largest pushes against the CPU in f64 ---------------------------
         ctl, kw = rec["calls"][0]
@@ -1994,6 +2067,247 @@ def phase_benchmarks(tag):
     print(f"phase 13 took {time.perf_counter() - t_phase:.1f} s")
     return {name: l_bench[name] + launches[name] for name in l_bench}
 
+# --- graphs: the graphed functions replayed against disable_graphs() ---------
+# (runtime/cache.py; JAX's jit of the solve, its substep scan and the scan
+# body of its episode)
+
+GRAPH_RTOL = 1e-6  # where a replay is not bitwise eager's: largest |replay - eager| / max|eager| of an output
+GRAPH_REPLAY_REPS = 5  # replays timed a function
+GRAPH_TICKS = 30  # the eager prefix and the replayed segment of the closed loop: one MPC period each
+GRAPH_SOLVE_B = (1, 512)  # the solve's batches (the last also the bench chain's)
+GRAPH_WIDE_B = 256  # the plant's and the WBC stage's wide batch
+# the csrc kernels (top-level anonymous namespace) by their names in a trace,
+# each to the wrapper that launches it
+HAND_KERNEL = re.compile(r"^(?:void )?\(anonymous namespace\)::(\w+)[(<]")
+HAND_KERNELS = {kernel: name for name, stages in (("spd_inverse", K3_STAGES), ("symv_packed", K4_STAGES),
+                                                  ("admm_fused", K5_STAGES)) for kernel, _ in stages}
+# per wrapper: its kernels in one call, read off phase 7's one-call profiles
+# (else, in phase 14, off an eager call's trace)
+KERNELS_PER_CALL = {}
+
+
+def named_leaves(tree, prefix=""):
+    """[(name, tensor)] of a (nested) NamedTuple / tuple of tensors."""
+    if isinstance(tree, torch.Tensor):
+        return [(prefix or "out", tree)]
+    if isinstance(tree, tuple):
+        names = getattr(tree, "_fields", None) or [str(i) for i in range(len(tree))]
+        return [leaf for n, a in zip(names, tree) for leaf in named_leaves(a, f"{prefix}.{n}" if prefix else n)]
+    return []
+
+
+def tree_gap(got, want):
+    """(bitwise equal, largest |got - want| / max|want| over the leaves,
+    and the leaf it is in)."""
+    a, b = named_leaves(got), named_leaves(want)
+    require([n for n, _ in a] == [n for n, _ in b], "replay and eager return different trees")
+    same, worst = True, (0.0, "")
+    for (name, x), (_, y) in zip(a, b):
+        if torch.equal(x, y):
+            continue
+        same = False
+        scale = float(y.abs().max()) if y.numel() else 0.0
+        gap = float((x.double() - y.double()).abs().max()) / (scale if scale > 0 else 1.0)
+        if not math.isfinite(gap):
+            gap = math.inf
+        worst = max(worst, (gap, name))
+    return same, worst[0], worst[1]
+
+
+def hand_launches(rows):
+    """{wrapper: launches of its csrc kernels} in a profile's rows, counted
+    by the kernels' names."""
+    got = dict.fromkeys(KERNELS, 0)
+    for key, count, _ in rows:
+        m = HAND_KERNEL.match(key)
+        if m and m.group(1) in HAND_KERNELS:
+            got[HAND_KERNELS[m.group(1)]] += count
+    return got
+
+
+def timed(fn, reps):
+    """ms of each of `reps` calls of fn, synchronised before and after."""
+    out = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - t) * 1e3)
+    return np.array(out)
+
+
+def graph_check(name, owner, fn, args, key_args, tag):
+    """fn(*args) replayed against itself under disable_graphs() on the same
+    inputs: bitwise, else within GRAPH_RTOL; the wrappers' counts of a
+    replay (the graph's record) equal eager's, and the replay's trace holds
+    that many calls' worth of each wrapper's csrc kernels, counted by name
+    (KERNELS_PER_CALL: phase 7's, else read off the first eager call's trace
+    that runs the wrapper). Prints the capture seconds, the eager call's wall and the
+    replays' p50, the replay's device time and the idle shares, and the pool.
+    key_args: the arguments of the graphed call inside fn (its key)."""
+    t_check = time.perf_counter()
+    with RC.disable_graphs():
+        zero_launches()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        want = fn(*args)
+        torch.cuda.synchronize()
+        eager_ms = (time.perf_counter() - t) * 1e3
+        l_eager = read_launches()
+    fresh = RC.lookup(owner, *key_args) is None
+    zero_launches()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    got = fn(*args)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t
+    l_first = read_launches()
+    entry = RC.lookup(owner, *key_args)
+    require(entry is not None, f"graphs {name}: no graph was captured")
+    zero_launches()
+    again = fn(*args)
+    torch.cuda.synchronize()
+    l_replay = read_launches()
+    require(l_first == l_eager and l_replay == l_eager,
+            f"graphs {name}: launches of a replay {l_replay} (first call {l_first}), eager {l_eager}")
+    unread = [k for k, n in l_eager.items() if n and k not in KERNELS_PER_CALL]
+    if unread:
+        with RC.disable_graphs():
+            rows = traced(lambda: fn(*args))
+        require(rows is not None, f"graphs {name}: the eager call's trace: {NOT_PROFILED}")
+        seen = hand_launches(rows)
+        for k in unread:
+            require(seen[k] % l_eager[k] == 0 and seen[k] > 0,
+                    f"graphs {name}: {seen[k]} {k} kernels traced in {l_eager[k]} eager calls")
+            KERNELS_PER_CALL[k] = seen[k] // l_eager[k]
+        print(f"phase 14 graphs {name}: kernels a wrapper call, from the eager call's trace: "
+              f"{ {k: KERNELS_PER_CALL[k] for k in unread} } {tag}")
+    same, gap, leaf = tree_gap(got, want)
+    same2, gap2, _ = tree_gap(again, want)
+    if same and same2:
+        held = "bitwise equal to eager (two replays)"
+    else:
+        with RC.disable_graphs():
+            eager2 = fn(*args)
+        e_same, e_gap, _ = tree_gap(eager2, want)
+        gap = max(gap, gap2)
+        held = (f"largest |replay - eager| / max|eager| {gap:.3e} ({leaf}); eager against itself "
+                + ("bitwise" if e_same else f"{e_gap:.3e}"))
+        require(gap <= GRAPH_RTOL, f"graphs {name}: replay differs from eager by {gap} ({leaf})")
+    replay = timed(lambda: fn(*args), GRAPH_REPLAY_REPS)
+    r50 = float(np.percentile(replay, 50))
+    rows = traced(lambda: fn(*args))
+    require(rows is not None, f"graphs {name}: the replay's trace: {NOT_PROFILED}")
+    in_trace = hand_launches(rows)
+    recorded = {k: n * KERNELS_PER_CALL.get(k, 0) for k, n in entry_launches(entry).items()}
+    require(in_trace == recorded, f"graphs {name}: csrc kernels in the replay's trace {in_trace}, the graph's "
+                                  f"record {entry_launches(entry)} x kernels a call {KERNELS_PER_CALL} = {recorded}")
+    d = device_total(rows)
+    dev = (f"device {d[0]:.3f} ms in {d[1]} kernels, copies and fills a replay, idle share {1 - d[0] / r50:.3f} "
+           f"replayed, {1 - d[0] / eager_ms:.3f} eager (the same kernels)")
+    print(f"phase 14 graphs {name}: {held}; launches a replay {l_replay} = eager's, csrc kernels in its trace "
+          f"{in_trace} (by name); capture "
+          f"{entry.capture_s:.2f} s ({'this call' if fresh else 'earlier'}; first call {first_s:.2f} s); wall eager "
+          f"{eager_ms:.2f} ms (the compared call), replay p50 {r50:.2f} ms ({len(replay)}); {dev}; graph pool "
+          f"{RC.pool_bytes() / 2**20:.0f} MiB, {len(RC.entries())} graphs; {time.perf_counter() - t_check:.1f} s "
+          f"{tag}")
+
+
+def entry_launches(entry):
+    """A graph's record of its wrappers' calls, by KERNELS' names."""
+    return dict(zip(KERNELS, entry.launches))
+
+
+def loop_check(name, ctl, s0, inputs, tag):
+    """GRAPH_TICKS eager ticks, then GRAPH_TICKS more from the same state,
+    replayed (the WBC stage's graph, the solve's inside the MPC stage) and
+    eagerly: bitwise, else within GRAPH_RTOL."""
+    S = GRAPH_TICKS
+    with RC.disable_graphs():
+        s_mid, _ = ctl.run_episode(s0, RL.TickInput(*(a[:, :S] for a in inputs)))
+        seg = RL.TickInput(*(a[:, S:] for a in inputs))
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        s_e, tel_e = ctl.run_episode(s_mid, seg)
+        torch.cuda.synchronize()
+        eager_s = time.perf_counter() - t
+    zero_launches()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    s_g, tel_g = ctl.run_episode(s_mid, seg)
+    torch.cuda.synchronize()
+    replay_s = time.perf_counter() - t
+    launches = read_launches()
+    sqp = ctl.cfg.mpc.sqp_iters
+    require(launches["admm_fused"] == sqp, f"graphs {name}: launches {launches}, expected admm_fused {sqp}")
+    same, gap, leaf = tree_gap((s_g, tel_g), (s_e, tel_e))
+    held = "telemetry and final state bitwise equal" if same else f"largest gap / max|eager| {gap:.3e} ({leaf})"
+    require(same or gap <= GRAPH_RTOL, f"graphs {name}: the replayed segment differs by {gap} ({leaf})")
+    print(f"phase 14 graphs {name}: {S} ticks (1 MPC stage, eager around its solve's replay, + {S} WBC replays) "
+          f"after {S} eager ticks: {held} to the eager run; launches {launches}; wall {replay_s:.2f} s replayed, "
+          f"{eager_s:.2f} s eager {tag}")
+
+
+def phase_graphs(tag, dev="cuda"):
+    """Phase 14: every graphed function replayed against disable_graphs() on
+    the same inputs (comparisons, not a main path: its launches are not the
+    kernels line's)."""
+    t_phase = time.perf_counter()
+    # the solve on the three paths at B = 1 and 512, from a warm start
+    for path, kw in (("riccati", {}), ("dense", {"kkt_impl": "dense"}),
+                     ("fused", {"kkt_impl": "dense", "admm_impl": "fused"})):
+        cfg = ergocub_mpc_config(**kw)
+        solver = CentroidalMPCSolver(cfg)
+        for B in GRAPH_SOLVE_B:
+            p = BENCH.make_params(cfg, BENCH.lateral_pushes(B), device=dev)
+            with RC.disable_graphs():
+                w = solver.warm_from(p, solver.solve(p, solver.cold_start(B, device=dev)))
+            graph_check(f"solve {path} B={B}", ("solve", cfg), solver.solve, (p, w), (p, w), tag)
+    # apps.bench's chain at the bench's configuration and shape
+    cfg = ergocub_mpc_config()
+    solver = CentroidalMPCSolver(cfg)
+    B = GRAPH_SOLVE_B[-1]
+    p, w = BENCH.make_params(cfg, BENCH.lateral_pushes(B), device=dev), solver.cold_start(B, device=dev)
+    graph_check(f"bench chain B={B} x KB={BENCH.KB}", ("bench.chain", cfg, BENCH.KB),
+                lambda pp, ww: BENCH.chain(solver, pp, ww, BENCH.KB), (p, w), (p, w), tag)
+
+    # the rigid plant's tick: B = 1 (the settle's), B = 256 with a push
+    Bw = GRAPH_WIDE_B
+    cfg_r, model, W, _ = rigid_setup()
+    weights = convert.mann_weights_from_numpy(W, device=dev)
+    ctl_r = RL.WalkingController(cfg_r, model, weights, device=dev)
+    s_r = ctl_r.initial_state(Bw)  # the settle: 200 replays of the B = 1 tick
+    joy = joysticks(Bw, device=dev)
+    zeros = torch.zeros(Bw, 3, device=dev)
+    push = zeros.clone()
+    push[1::2, 1] = RIGID_PUSH
+    owner = ("dynamics_step", cfg_r.rigid, RC.Ident(model), cfg_r.wbc_dt, RB.SOLES, None)
+    for B in (1, Bw):
+        rb, q = items_of(s_r.rb, slice(0, B)), s_r.q[:B]
+        ext = None if B == 1 else push[:B] * ctl_r.mass
+        graph_check(f"dynamics_step B={B}" + (" (the settle's)" if B == 1 else " pushed"), owner,
+                    lambda st, qc, ef: RB.dynamics_step(cfg_r.rigid, model, st, qc, cfg_r.wbc_dt, ext_force_base=ef),
+                    (rb, q, ext), (rb, q, ext), tag)
+
+    # the WBC stage on both plants at B = 1 and 256, after the tick-0 MPC stage
+    ctl_k = RL.WalkingController(ergocub_gazebo_v1(mpc=ergocub_mpc_config(kkt_impl="dense", admm_impl="fused")),
+                                 model, weights, device=dev)
+    s_k = ctl_k.initial_state(Bw)
+    for plant, ctl, s_all in (("kinematic", ctl_k, s_k), ("rigid", ctl_r, s_r)):
+        for B in (1, Bw):
+            inp = RL.TickInput(joy[:B], push[:B] if plant == "rigid" else zeros[:B], zeros[:B])
+            with RC.disable_graphs():
+                s = ctl._mpc_stage(items_of(s_all, slice(0, B)), inp)
+            key = (s._replace(plant=s.plant._replace(rng=None)), inp)
+            graph_check(f"_wbc_stage {plant} B={B}", ("wbc_stage", ctl), ctl._wbc_stage, (s, inp), key, tag)
+
+    # the closed loop at B = 1: an eager MPC period, then one replayed
+    for plant, ctl, s_all in (("kinematic", ctl_k, s_k), ("rigid", ctl_r, s_r)):
+        loop_check(f"closed loop {plant} B=1", ctl, items_of(s_all, slice(0, 1)),
+                   tick_inputs(joy[:1], 2 * GRAPH_TICKS), tag)
+    print(f"phase 14 took {time.perf_counter() - t_phase:.1f} s")
+
 
 def main():
     require(torch.cuda.is_available(), "no CUDA device: this smoke run needs a GPU")
@@ -2159,15 +2473,17 @@ def main():
     t_phase = time.perf_counter()
 
     # --- 7. timings (not asserted) ------------------------------------------
-    times, bounds = {}, {}
+    times, bounds, k3_cusolver = {}, {}, {}
     for B in (1, B512):
         Mb = M_real[:1].expand(B, 504, 504).contiguous()
         pb = pk_real[:1].expand(B, 10, 128, 128).contiguous()
         vb = v_real[:1].expand(B, 512).contiguous()
         dense_b = K4.unpack_symmetric(pb)
         ab = tuple(a[:B].contiguous() for a in k5_args[B512])
-        times[("spd_inverse", B)] = (cuda_ms(lambda: K3.spd_inverse(Mb), 5), cuda_ms(lambda: K3.spd_inverse_ref(Mb), 5),
-                                     cuda_ms(lambda: torch.linalg.inv(Mb), 5))
+        with linalg_backend("default"):  # PyTorch's own choice, as the kernel line had it before the graphs
+            plain_k3, lib_k3 = cuda_ms(lambda: K3.spd_inverse_ref(Mb), 5), cuda_ms(lambda: torch.linalg.inv(Mb), 5)
+        times[("spd_inverse", B)] = (cuda_ms(lambda: K3.spd_inverse(Mb), 5), plain_k3, lib_k3)
+        k3_cusolver[B] = (cuda_ms(lambda: K3.spd_inverse_ref(Mb), 5), cuda_ms(lambda: torch.linalg.inv(Mb), 5))
         times[("symv_packed", B)] = (cuda_ms(lambda: K4.symv_packed(pb, vb), 50),
                                      cuda_ms(lambda: K4.symv_packed_ref(pb, vb), 50),
                                      cuda_ms(lambda: torch.matmul(dense_b, vb[..., None]), 50))
@@ -2181,7 +2497,11 @@ def main():
         b_ms, b_by, t_bytes, t_ops = bounds[(name, B)]
         lib_s = "none" if lib is None else f"{lib:.4f} ms"
         rate = f", {b_ms * R.HBM_BYTES_PER_S / ms / 1e9:.1f} GB/s on the bound's bytes" if b_by == "bytes" else ""
-        print(f"phase 7 time {name} B={B}: kernel {ms:.4f} ms, plain twin {plain:.4f} ms, library {lib_s}, "
+        backend = ""
+        if name == "spd_inverse":
+            backend = (" (linalg on PyTorch's default backend; on cuSOLVER, the package's setting: plain twin "
+                       f"{k3_cusolver[B][0]:.4f} ms, library {k3_cusolver[B][1]:.4f} ms)")
+        print(f"phase 7 time {name} B={B}: kernel {ms:.4f} ms, plain twin {plain:.4f} ms, library {lib_s}{backend}, "
               f"bound {b_ms:.4f} ms ({b_by}; bytes {t_bytes:.4f} ms, operations {t_ops:.4f} ms), kernel at "
               f"{100 * b_ms / ms:.1f} % of the bound{rate} {tag}")
     # K5's launch at each horizon, and its time at the longer ones (B = 512
@@ -2215,6 +2535,9 @@ def main():
             if stages is None:
                 print(f"phase 7 profile {name} B={B}: {NOT_PROFILED} {tag}")
                 continue
+            calls = sum(count for count, _ in stages.values())  # phase 14's kernels a call
+            require(KERNELS_PER_CALL.setdefault(name, calls) == calls,
+                    f"{name}: {calls} kernels a call at B={B}, {KERNELS_PER_CALL[name]} at B=1")
             total = sum(ms for _, ms in stages.values())
             for stage, (count, ms) in stages.items():
                 print(f"phase 7 profile {name} B={B} {stage}: {count} launches, {ms:.4f} ms device "
@@ -2228,28 +2551,32 @@ def main():
         print(f"phase 7 profile torch.matmul on the unpacked matrix B={B}: " + (
             f"{sum(c for _, c, _ in mm)} launches ({', '.join(key[:60] for key, _, _ in mm)}), "
             f"{sum(ms for _, _, ms in mm):.4f} ms device" if mm else NOT_PROFILED) + f" {tag}")
-    # the B = 512 x KB = 4 chains' rates are phase 13's (apps.bench_kkt)
+    # the B = 512 x KB = 4 chains' rates are phase 13's (apps.bench_kkt); the
+    # ticks eager, as before the graphs (their replays are phase 14's)
     for name, solver, cfg in (("dense", dense, cfg_dense), ("fused", fused, cfg_fused), ("riccati", ric, cfg_ric)):
-        _, t1 = tick_chain(solver, cfg, ticks=WARM_TICKS)
+        with RC.disable_graphs():
+            _, t1 = tick_chain(solver, cfg, ticks=WARM_TICKS)
         lat = np.array(t1[1:])  # warm-started ticks
-        print(f"phase 7 time {name} B=1 warm tick: p50 {np.percentile(lat, 50):.2f} ms, "
+        print(f"phase 7 time {name} B=1 warm tick (eager): p50 {np.percentile(lat, 50):.2f} ms, "
               f"p90 {np.percentile(lat, 90):.2f} ms, max {lat.max():.2f} ms ({len(lat)} ticks) {tag}")
         if name == "fused":  # its device time per warm solve against the wall of a warm solve
             for B in (1, B512):
                 params = BENCH.make_params(cfg, BENCH.lateral_pushes(B) if B > 1 else lateral([0.0]))
-                warm = solver.warm_from(params, solver.solve(params, solver.cold_start(B)))
-                torch.cuda.synchronize()
-                t = time.perf_counter()
-                solver.solve(params, warm)
-                torch.cuda.synchronize()
-                wall = float(np.percentile(lat, 50)) if B == 1 else (time.perf_counter() - t) * 1e3
-                d = device_time(lambda: solver.solve(params, warm))
+                with RC.disable_graphs():
+                    warm = solver.warm_from(params, solver.solve(params, solver.cold_start(B)))
+                    torch.cuda.synchronize()
+                    t = time.perf_counter()
+                    solver.solve(params, warm)
+                    torch.cuda.synchronize()
+                    wall = float(np.percentile(lat, 50)) if B == 1 else (time.perf_counter() - t) * 1e3
+                    d = device_time(lambda: solver.solve(params, warm))
                 if d is None:
                     print(f"phase 7 profile fused solve B={B}: {NOT_PROFILED} {tag}")
                     continue
                 dev_ms, count, (key, top) = d
-                print(f"phase 7 profile fused solve B={B}: device {dev_ms:.3f} ms in {count} kernels, copies and "
-                      f"fills; wall {wall:.2f} ms (unprofiled, {'the p50 above' if B == 1 else 'one warm solve'}), "
+                print(f"phase 7 profile fused solve B={B} (eager): device {dev_ms:.3f} ms in {count} kernels, "
+                      f"copies and fills; wall {wall:.2f} ms (unprofiled, "
+                      f"{'the p50 above' if B == 1 else 'one warm solve'}), "
                       f"idle share {1 - dev_ms / wall:.3f}; largest {key[:70]} {top:.3f} ms {tag}")
 
     print(f"phase 7 took {time.perf_counter() - t_phase:.1f} s")
@@ -2273,7 +2600,10 @@ def main():
 
     # --- 13. the benchmark entry points ---------------------------------------
     l_bench = phase_benchmarks(tag)
-    print(f"phases 1-13 took {time.perf_counter() - t_start:.1f} s")
+
+    # --- 14. the graphed functions replayed against eager ----------------------
+    phase_graphs(tag)
+    print(f"phases 1-14 took {time.perf_counter() - t_start:.1f} s")
 
     sources = {"spd_inverse": ("cmw_tpu_torch/csrc/spd_inverse.cu", "cmw_tpu/ops/spd_inverse.py:132"),
                "symv_packed": ("cmw_tpu_torch/csrc/symv.cu", "cmw_tpu/ops/symv.py:77"),

@@ -34,3 +34,10 @@ __version__ = "0.1.0"
 # the reference). Keep every float32 product in full float32 on the card.
 _torch.backends.cuda.matmul.allow_tf32 = False
 _torch.backends.cudnn.allow_tf32 = False
+
+# Captured dispatch (runtime/cache.py): for batched LU (the IK's 47-row KKT
+# solve and inverse at B > 1) PyTorch's default picks MAGMA, whose batched
+# factorisation cannot be captured in a CUDA graph; cuSOLVER / cuBLAS's can,
+# and the eager calls take the same route so that a replay equals them.
+if _torch.backends.cuda.is_built():
+    _torch.backends.cuda.preferred_linalg_library("cusolver")

@@ -8,10 +8,13 @@ package's benchmark). Prints ONE JSON line on stdout, with bench.py's keys:
 
   - Headline, at ergocub_mpc_config() (the Riccati x-update): B walking
     scenarios pushed sideways by linspace(-1, 1) m/s^2 (`make_params`), each
-    a chain of KB warm-started solves of the same parameters. The first
-    chain's wall is `compile_s`: in the port that is lazy initialisation
-    plus any nvcc build of the kernels, not a compile. Then `--reps` chains,
-    each ended by torch.cuda.synchronize() and a scalar read;
+    a chain of KB warm-started solves of the same parameters, run on the
+    card as ONE replayed CUDA graph (`runtime/cache.py`), as bench.py runs
+    the chain inside one dispatch (bench.py:64-78). The first chain's wall is
+    `compile_s`: the graph's warm-up (lazy initialisation and any nvcc build
+    of the kernels) + its capture + the first replay, as bench.py's is the
+    chain's compile (bench.py:81-84). Then `--reps` chains (replays), each
+    ended by torch.cuda.synchronize() and a scalar read;
     solves/s = B / (mean chain seconds / KB) and vs_baseline its ratio to
     one solve per 60 ms MPC tick (the reference's budget, BASELINE.md).
   - Numerics sentinel: one B = 1 solve on that configuration against one on
@@ -23,11 +26,13 @@ package's benchmark). Prints ONE JSON line on stdout, with bench.py's keys:
     its path as the port runs it (`ops/roofline.py`, the kernel table's
     counts), over the card's float32 rate and memory rate.
   - `--full`, after the line: the B = 1 latency of a chain of 10
-    warm-started solves over `--samples` dispatches (p50 / p99 / count),
-    `bf16_kkt_solves_per_s` (the B x KB chain with kkt_dtype="bf16" on the
-    dense KKT) and `cost_pallas_vs_xla` (the sentinel's two costs), written
-    with the headline's dict to `--extra-out` as JSON, never to stdout.
-  - `--profile DIR`: a torch.profiler trace of one chain, exported into DIR.
+    warm-started solves over `--samples` dispatches, each a replay of that
+    chain's own graph (p50 / p99 / count), `bf16_kkt_solves_per_s` (the
+    B x KB chain's graph with kkt_dtype="bf16" on the dense KKT) and
+    `cost_pallas_vs_xla` (the sentinel's two costs), written with the
+    headline's dict to `--extra-out` as JSON, never to stdout.
+  - `--profile DIR`: a torch.profiler trace of one chain (a replay: the
+    kernels inside it, without the solver's spans), exported into DIR.
 
 It runs on the card; `--cpu` runs it on the CPU (with `--batch` cut, a
 check of the program, not a measurement). The configuration and KB are
@@ -59,6 +64,7 @@ from cmw_tpu_torch.core import contacts
 from cmw_tpu_torch.core.centroidal import pack_state
 from cmw_tpu_torch.ops import roofline as R
 from cmw_tpu_torch.ops.symv import BLK
+from cmw_tpu_torch.runtime import cache
 
 BASELINE_SOLVES_PER_S = 1.0 / 0.06  # the reference: one solve per 60 ms MPC tick
 T0 = 1.02  # the gait's time at the first interval: the left foot swinging
@@ -95,7 +101,12 @@ def lateral_pushes(B: int, *, dtype=torch.float32) -> torch.Tensor:
 
 def chain(solver, params, warm, KB: int):
     """KB warm-started solves of the same parameters, each from the last
-    (bench.py:74-78). Returns (costs [KB, B], prim_res [KB, B])."""
+    (bench.py:74-78), on the card one replay of the chain's graph. Returns
+    (costs [KB, B], prim_res [KB, B])."""
+    return cache.graphed(("bench.chain", solver.cfg, KB), lambda p, w: _chain(solver, p, w, KB), params, warm)
+
+
+def _chain(solver, params, warm, KB: int):
     costs, prims = [], []
     for _ in range(KB):
         sol = solver.solve(params, warm)

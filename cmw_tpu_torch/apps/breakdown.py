@@ -15,6 +15,11 @@ lines. At batch B (`apps.bench.make_params`), each timed as the mean of
   - the batched residual evaluation;
   - the "accounted" sum: GN build + one inverse + the ADMM iterations.
 
+On the card each timed part replays a cached CUDA graph (the untimed call
+captures it, `runtime/cache.py`), as the JAX tool jits each part: the
+solves the solver's own graph, the KKT build, each inverse and the
+residuals one graph each.
+
 Example:
   python -m cmw_tpu_torch.apps.breakdown --batch 512
   python -m cmw_tpu_torch.apps.breakdown --cpu --batch 4 --reps 1
@@ -33,6 +38,7 @@ from cmw_tpu_torch.cmpc import CentroidalMPCSolver, ergocub_mpc_config
 from cmw_tpu_torch.cmpc import formulation as F
 from cmw_tpu_torch.cmpc.qp import spd_inverse
 from cmw_tpu_torch.ops import spd_inverse as K3
+from cmw_tpu_torch.runtime import cache
 
 SOLVES = (("full(2,24)", {}), ("sqp2_admm1", dict(admm_iters=1)), ("sqp1_admm24", dict(sqp_iters=1)),
           ("sqp1_admm1", dict(sqp_iters=1, admm_iters=1)))
@@ -92,6 +98,7 @@ def main(argv=None) -> dict:
         dt = timeit(lambda: solver.solve(bp, warm).cost, reps=reps, device=device)
         results[name] = dt
         print(f"{name:14s}: {dt*1e3:8.2f} ms  ({B/dt:8.0f} solves/s)", flush=True)
+        cache.clear()  # done with this configuration's graph
 
     # marginal costs
     cfg = ergocub_mpc_config()
@@ -101,20 +108,27 @@ def main(argv=None) -> dict:
     print(f"per-ADMM-iteration: {admm_iter_ms:.3f} ms  (x{n_admm} = {admm_iter_ms*n_admm:.1f} ms)")
     print(f"second SQP iteration total: {sqp_ms:.1f} ms")
 
-    # the KKT build and inverse alone
+    # the KKT build and inverse alone, each its own graph
+    def gn_build(p):
+        return cache.graphed(("breakdown.build_kkt", cfg), lambda q: build_kkt(cfg, q), p)
+
     bp = make_params(cfg, pushes, device=device)
-    kkts = build_kkt(cfg, bp).contiguous()
-    dt_gn = timeit(build_kkt, cfg, bp, reps=reps, device=device)
+    kkts = gn_build(bp).contiguous()
+    dt_gn = timeit(gn_build, bp, reps=reps, device=device)
     print(f"GN build (jacfwd+JtJ+ata): {dt_gn*1e3:8.2f} ms", flush=True)
-    dt_pal = timeit(K3.spd_inverse, kkts, reps=reps, device=device)
+    dt_pal = timeit(lambda M: cache.graphed(("breakdown.inverse_pallas",), K3.spd_inverse, M), kkts, reps=reps,
+                    device=device)
     print(f"KKT inverse (pallas):      {dt_pal*1e3:8.2f} ms", flush=True)
-    dt_xla = timeit(spd_inverse, kkts, reps=reps, device=device)
+    dt_xla = timeit(lambda M: cache.graphed(("breakdown.inverse_xla",), spd_inverse, M), kkts, reps=reps,
+                    device=device)
     print(f"KKT inverse (xla chol):    {dt_xla*1e3:8.2f} ms", flush=True)
 
     # residual evaluation
     z0 = torch.zeros(B, cfg.n_vars, device=device)
-    dt_res = timeit(F.residuals, cfg, bp, z0, reps=reps, device=device)
+    dt_res = timeit(lambda p, z: cache.graphed(("breakdown.residuals", cfg), lambda q, zz: F.residuals(cfg, q, zz),
+                                               p, z), bp, z0, reps=reps, device=device)
     print(f"residual eval (batched):   {dt_res*1e3:8.2f} ms", flush=True)
+    cache.clear()
 
     accounted = dt_gn + dt_pal + n_admm * admm_iter_ms / 1e3
     print(

@@ -28,6 +28,7 @@ from cmw_tpu_torch.core import kinematics as kin
 from cmw_tpu_torch.core.centroidal import GRAVITY
 from cmw_tpu_torch.dist.sweep import run_sweep
 from cmw_tpu_torch.mann.network import load_mann_weights
+from cmw_tpu_torch.runtime import cache
 from cmw_tpu_torch.runtime.config import ergocub_gazebo_v1
 from cmw_tpu_torch.runtime.loop import WalkingController
 from cmw_tpu_torch.sim.rigid_body import RigidBodyConfig
@@ -177,6 +178,7 @@ def _sweep(args, dev):
             model_guards=not (args.rigid and args.op_point),
         )
         wall = time.perf_counter() - t  # run_sweep read its results back from the card
+        cache.clear()  # this arm's graphs (the other arm's controller keys its own)
         stats.update(
             {
                 "step_adjustment": adjust,

@@ -19,10 +19,10 @@ from __future__ import annotations
 import dataclasses
 from typing import NamedTuple
 
-import numpy as np
 import torch
 
 from cmw_tpu_torch.core.centroidal import GRAVITY, cross, gravity_vector, unpack_state
+from cmw_tpu_torch.core.consts import constant_like, device_constant
 from cmw_tpu_torch.core.contacts import MPCStageParams
 
 
@@ -104,13 +104,13 @@ class MPCConfig:
         return tcc * 3 + tcc * 5 + self.n_positions
 
     def corners_arr(self, *, device=None, dtype=torch.float32):
-        return torch.as_tensor(np.array(self.corners), dtype=dtype, device=device)
+        return device_constant(_tuples(self.corners), torch.device(device or "cpu"), dtype)
 
     def cone_matrix(self, *, device=None, dtype=torch.float32):
         """D [5,3]: local-frame friction pyramid + fz row."""
         mu = self.mu
-        D = [[1.0, 0.0, -mu], [-1.0, 0.0, -mu], [0.0, 1.0, -mu], [0.0, -1.0, -mu], [0.0, 0.0, 1.0]]
-        return torch.tensor(D, dtype=dtype, device=device)
+        D = ((1.0, 0.0, -mu), (-1.0, 0.0, -mu), (0.0, 1.0, -mu), (0.0, -1.0, -mu), (0.0, 0.0, 1.0))
+        return device_constant(D, torch.device(device or "cpu"), dtype)
 
 
 def ergocub_mpc_config(**overrides) -> MPCConfig:
@@ -140,8 +140,13 @@ class MPCParams(NamedTuple):
     ext_torque: torch.Tensor  # [..., 3] external torque / mass about CoM
 
 
+def _tuples(values):
+    """A config's nested sequence of numbers as nested tuples (a constant's key)."""
+    return tuple(_tuples(v) for v in values) if isinstance(values, (tuple, list)) else values
+
+
 def _like(x, values):
-    return torch.as_tensor(values, dtype=x.dtype, device=x.device)
+    return constant_like(_tuples(values), x)
 
 
 # --- decision-vector packing -------------------------------------------------
@@ -327,14 +332,14 @@ def constraint_bounds(cfg: MPCConfig, stage: MPCStageParams, dtype=torch.float32
 
     # block 2: cone rows, constant (satisfied with equality at f = 0)
     shape2 = lead + (T, nc, ncor, 5)
-    l2 = torch.tensor([-1e20, -1e20, -1e20, -1e20, 0.0], dtype=dtype, device=device).expand(shape2)
-    u2 = torch.tensor([0.0, 0.0, 0.0, 0.0, cfg.fz_max], dtype=dtype, device=device).expand(shape2)
+    l2 = device_constant((-1e20, -1e20, -1e20, -1e20, 0.0), device, dtype).expand(shape2)
+    u2 = device_constant((0.0, 0.0, 0.0, 0.0, cfg.fz_max), device, dtype).expand(shape2)
     rho2 = full(shape2, cfg.admm_rho)
 
     # block 3: position boxes in the contact frame around nominal
     p_nom_loc = torch.einsum("...isba,...isb->...isa", stage.slot_rot, stage.slot_pos_nom).to(dtype)
-    bl = torch.as_tensor(np.array(cfg.bbox_lower), dtype=dtype, device=device)[:, None, :]
-    bu = torch.as_tensor(np.array(cfg.bbox_upper), dtype=dtype, device=device)[:, None, :]
+    bl = device_constant(_tuples(cfg.bbox_lower), device, dtype)[:, None, :]
+    bu = device_constant(_tuples(cfg.bbox_upper), device, dtype)[:, None, :]
     adj = (stage.slot_valid * stage.slot_adjustable)[..., None] > 0
     l3 = p_nom_loc + torch.where(adj, bl, zero)
     u3 = p_nom_loc + torch.where(adj, bu, zero)

@@ -32,9 +32,10 @@ class ADMMState(NamedTuple):
 def spd_inverse(M: torch.Tensor) -> torch.Tensor:
     """Plain inverse of SPD matrices [..., n, n]: M^-1 = L^-T L^-1 from a
     Cholesky factor and a wide triangular solve (the `inverse_impl="xla"`
-    route of the solver)."""
-    L = torch.linalg.cholesky(M)
-    eye = torch.eye(M.shape[-1], dtype=M.dtype, device=M.device).expand(M.shape)
+    route of the solver). `cholesky_ex` reads nothing back from the card: a
+    matrix that is not SPD gives NaN, as JAX's Cholesky does."""
+    L, _ = torch.linalg.cholesky_ex(M)
+    eye = eye_like(M.shape[-1], M).expand(M.shape)
     Li = torch.linalg.solve_triangular(L, eye, upper=False)
     return torch.einsum("...ki,...kj->...ij", Li, Li)
 

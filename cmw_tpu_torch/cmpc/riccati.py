@@ -31,6 +31,7 @@ from torch.func import jacfwd, vmap
 
 from cmw_tpu_torch.cmpc import formulation as F
 from cmw_tpu_torch.cmpc.formulation import _blockdiag3
+from cmw_tpu_torch.core.consts import device_constant, eye_like
 
 
 class RiccatiFactor(NamedTuple):
@@ -129,17 +130,18 @@ def _cost_blocks(cfg: F.MPCConfig, stage, rho, lam_sigma, dtype):
 
     q_track = torch.cat(
         [
-            torch.as_tensor(cfg.com_weight, dtype=dtype, device=device),
+            device_constant(tuple(cfg.com_weight), device, dtype),
             torch.zeros(3, dtype=dtype, device=device),
             torch.full((3,), cfg.angular_momentum_weight, dtype=dtype, device=device),
         ]
     )
-    wr2 = torch.as_tensor(cfg.force_rate_weight, dtype=dtype, device=device).repeat(nc * ncor)
+    wr2 = device_constant(tuple(cfg.force_rate_weight), device, dtype).repeat(nc * ncor)
 
     # symmetry: per (t, contact, axis) the 4 corner coords carry
     # w_sym^2 act (I - 11'/4), a projection
     eye_c = np.eye(ncor) - np.ones((ncor, ncor)) / ncor
-    sym_blk = torch.as_tensor(np.kron(np.kron(np.eye(nc), eye_c), np.eye(3)), dtype=dtype, device=device)
+    sym_blk = np.kron(np.kron(np.eye(nc), eye_c), np.eye(3))
+    sym_blk = device_constant(tuple(map(tuple, sym_blk.tolist())), device, dtype)
     act_coord = stage.active.transpose(-1, -2).repeat_interleave(ncor * 3, dim=-1).to(dtype)  # [B, T, nu]
     R_sym = cfg.force_symmetry_weight * act_coord[..., :, None] * sym_blk * act_coord[..., None, :]
 
@@ -227,8 +229,10 @@ def riccati_factor(
 
     S = Pi + Hpp
     S = 0.5 * (S + _t(S))
-    Ls = torch.linalg.cholesky(S)
-    Sinv = torch.cholesky_solve(torch.eye(np_, dtype=dtype, device=device).expand(Bsz, np_, np_), Ls)
+    # cholesky_ex reads nothing back from the card (cholesky checks its
+    # status there); a matrix that is not SPD gives NaN, as JAX's Cholesky does
+    Ls, _ = torch.linalg.cholesky_ex(S)
+    Sinv = torch.cholesky_solve(eye_like(np_, S).expand(Bsz, np_, np_), Ls)
     fac = RiccatiFactor(
         A=A, B=Bm, C=C, K=torch.stack(Ks, dim=1), KP=torch.stack(KPs, dim=1), D1=torch.stack(D1s, dim=1), Sinv=Sinv
     )

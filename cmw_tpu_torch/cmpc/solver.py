@@ -3,8 +3,12 @@
 PyTorch counterpart of `cmw_tpu/cmpc/solver.py`. `CentroidalMPCSolver.solve`
 takes `MPCParams` and a `WarmStart` whose tensors all lead with the batch
 axis B and returns an `MPCSolution` of [B, ...] tensors; where JAX batches the
-per-item solve with `vmap`, the port runs the whole batch at once. The
-solve runs eagerly:
+per-item solve with `vmap`, the port runs the whole batch at once. Where
+JAX jits the solve with the solver static (`cmw_tpu/cmpc/solver.py:121`),
+the port captures it: on the card `solve` replays the CUDA graph cached for
+the config's value and the inputs' shapes (`runtime/cache.py`), so every
+launch of the hand kernels below happens inside a graph; on the CPU, and
+under `runtime.cache.disable_graphs()`, it runs eagerly. The solve:
 
   1. warm-started z0 (time-shifted forces, slot-matched positions);
   2. the KKT operator M = H + sigma I + A^T rho A, factored once per solve
@@ -21,7 +25,8 @@ solve runs eagerly:
      constraint matrix (`formulation.constraint_dense`).
 
 Profiler spans `mpc.factor`, `mpc.linearize`, `mpc.admm` and
-`mpc.line_search` mark the phases for `torch.profiler`.
+`mpc.line_search` mark the phases for `torch.profiler` (eager runs only: a
+replay has no spans).
 
 Unknown option strings raise ValueError. The Riccati branch ignores
 `admm_impl` and `kkt_dtype`, as in JAX, and so does the fused ADMM kernel.
@@ -51,9 +56,11 @@ from torch.profiler import record_function
 from cmw_tpu_torch.cmpc import formulation as F
 from cmw_tpu_torch.cmpc.qp import ADMMState, admm_solve, spd_inverse
 from cmw_tpu_torch.cmpc.riccati import riccati_apply, riccati_factor
+from cmw_tpu_torch.core.consts import constant_like, eye_like
 from cmw_tpu_torch.ops import spd_inverse as ops_spd_inverse
 from cmw_tpu_torch.ops.admm_fused import admm_fused
 from cmw_tpu_torch.ops.symv import BLK, pack_symmetric
+from cmw_tpu_torch.runtime import cache
 
 KKT_IMPLS = ("auto", "riccati", "dense")
 INVERSE_IMPLS = ("auto", "pallas", "xla")
@@ -145,6 +152,11 @@ class CentroidalMPCSolver:
     # -- the solve ------------------------------------------------------------
 
     def solve(self, params: F.MPCParams, warm: WarmStart) -> MPCSolution:
+        """The solve, replayed from the graph cached for (config value,
+        inputs' shapes) on the card; eagerly on the CPU."""
+        return cache.graphed(("solve", self.cfg), self._solve, params, warm)
+
+    def _solve(self, params: F.MPCParams, warm: WarmStart) -> MPCSolution:
         cfg = self.cfg
         z0 = self._initial_z(params, warm)
         dtype, device = z0.dtype, z0.device
@@ -200,7 +212,7 @@ class CentroidalMPCSolver:
                 def sqp_operator(z):
                     return linearize(z, z0, fac0)
         else:
-            eye = torch.eye(cfg.n_vars, dtype=dtype, device=device)
+            eye = eye_like(cfg.n_vars, z0)
             ata = F.ata_blockdiag(cfg, stage, rho, dtype)
             inv = ops_spd_inverse.spd_inverse if cfg.inverse_impl in ("auto", "pallas") else spd_inverse
             xupd = cfg.xupdate_impl
@@ -275,7 +287,7 @@ class CentroidalMPCSolver:
                 def sqp_operator(z):
                     return kkt0, grad_fn(z) - h_mv(H0, z)
 
-        alphas = torch.as_tensor(cfg.line_search_alphas, dtype=dtype, device=device)
+        alphas = constant_like(tuple(cfg.line_search_alphas), z0)
         z, zc, y = z0, zc0, y0
         prim = None
         for _ in range(cfg.sqp_iters):

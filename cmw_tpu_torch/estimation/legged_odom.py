@@ -22,7 +22,7 @@ import torch
 
 from cmw_tpu_torch.core import kinematics as kin
 from cmw_tpu_torch.core import lie
-from cmw_tpu_torch.core.consts import eye_like
+from cmw_tpu_torch.core.consts import eye_like, tensor_like
 
 
 @dataclasses.dataclass(frozen=True)
@@ -53,7 +53,7 @@ def init(model: kin.RobotModel, q, fixed_index=0, sole_rot=None, sole_pos=None) 
     """From joints q [B, nj]: the fixed sole at the origin unless given."""
     lead = q.shape[:-1]
     return OdometryState(
-        fixed_index=torch.as_tensor(fixed_index, device=q.device).to(torch.long).expand(lead),
+        fixed_index=tensor_like(fixed_index, q, torch.long).expand(lead),
         fixed_rot=eye_like(3, q).expand(lead + (3, 3)) if sole_rot is None else sole_rot,
         fixed_pos=torch.zeros(lead + (3,), dtype=q.dtype, device=q.device) if sole_pos is None else sole_pos,
     )
@@ -115,5 +115,5 @@ def base_twist(model: kin.RobotModel, state: OdometryState, q, qd, base_R, base_
 def switch_fixed_foot(state: OdometryState, new_index, new_rot, new_pos) -> OdometryState:
     """Change the fixed frame (BLF `changeFixedFrame`, WholeBodyQPBlock.cpp:
     300-320): pin the new sole at its planned pose."""
-    idx = torch.as_tensor(new_index, device=state.fixed_index.device).to(torch.long).expand(state.fixed_index.shape)
+    idx = tensor_like(new_index, state.fixed_index, torch.long).expand(state.fixed_index.shape)
     return OdometryState(fixed_index=idx, fixed_rot=new_rot, fixed_pos=new_pos)

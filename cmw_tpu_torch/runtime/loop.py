@@ -34,10 +34,16 @@ integrator, reads the ZMP from the contact forces and adds the touchdown and
 lift gates, the gait rush, the crouch, the chest lean and the rigid-only IK
 rows.
 
+On the card the WBC stage replays the CUDA graph cached for the
+controller's value and the inputs' shapes (`runtime/cache.py`), the scan
+body of JAX's jitted episode (`cmw_tpu/runtime/loop.py:1506`, `:1528`); the
+MPC stage runs eagerly around its solve, which replays the solver's graph.
+
 The stages run inside `torch.profiler.record_function` spans: `mann`,
 `mpc.solve` (the MPC stage's other work is `mpc.other`), `wbc.plant` (the
 rigid plant's dynamics step), `wbc.estimation`, `wbc.ik` and `wbc.other`
-(the kinematic plant, integrators, ZMP, swing feet, telemetry).
+(the kinematic plant, integrators, ZMP, swing feet, telemetry). A replayed
+graph has no spans: profile under `runtime.cache.disable_graphs()`.
 """
 
 from __future__ import annotations
@@ -60,6 +66,7 @@ from cmw_tpu_torch.estimation import fixed_foot, legged_odom
 from cmw_tpu_torch.mann import generator as G
 from cmw_tpu_torch.mann.input_builder import build_desired_trajectory
 from cmw_tpu_torch.mann.network import MANNWeights
+from cmw_tpu_torch.runtime import cache
 from cmw_tpu_torch.runtime.config import WalkingConfig
 from cmw_tpu_torch.sim import plant as P
 from cmw_tpu_torch.sim import rigid_body as RB
@@ -246,6 +253,30 @@ class WalkingController:
         self.mass = model.total_mass
         self._polished = {}
         self._weights = {}
+
+    # The WBC stage's graphs are cached with the controller in the key (as
+    # JAX jits the episode with `self` static), and the cache keys by
+    # __hash__/__eq__. The default identity hash is UNSAFE across controller
+    # lifetimes: CPython reuses a freed object's id, so a controller built
+    # after a previous one died can alias the dead controller's entry and
+    # silently run the OLD config's program. Observed in JAX's `sweep
+    # --ablation` (one process, sequential arms): the pinned-footstep arm
+    # reproduced the step-adjustment arm's 32 scenario outcomes bit-for-bit
+    # while the same two configs run side by side diverged within 2 s. Hash
+    # and compare by STATIC VALUE instead: the frozen WalkingConfig carries
+    # full value semantics; model/weights compare by identity (the cached key
+    # holds strong refs, so a hit's stored objects are alive and `is` is
+    # sound). Same-value controllers share captured graphs.
+    def __hash__(self):
+        return hash(self.cfg)
+
+    def __eq__(self, other):
+        return (
+            type(other) is WalkingController
+            and self.cfg == other.cfg
+            and self.model is other.model
+            and self.weights is other.weights
+        )
 
     def _weights_as(self, like: torch.Tensor) -> MANNWeights:
         key = (like.device, like.dtype)
@@ -710,6 +741,20 @@ class WalkingController:
     # -- WBC stage (every tick) -------------------------------------------------
 
     def _wbc_stage(self, s: LoopState, inp: TickInput) -> tuple[LoopState, Telemetry]:
+        """One WBC tick. On the card it replays the graph cached for this
+        controller's value and the inputs' shapes; the plant's noise
+        generator stays out of the graph. With sensor noise on, the tick
+        draws from that generator in place, which a graph captured on one
+        episode's generator cannot do for another's: it then runs eagerly."""
+        pcfg = self.cfg.plant
+        if pcfg.encoder_noise > 0.0 or pcfg.velocity_noise > 0.0 or pcfg.wrench_noise > 0.0:
+            return self._wbc_stage_eager(s, inp)
+        rng = s.plant.rng
+        s2, tel = cache.graphed(("wbc_stage", self), self._wbc_stage_eager,
+                                s._replace(plant=s.plant._replace(rng=None)), inp)
+        return s2._replace(plant=s2.plant._replace(rng=rng)), tel
+
+    def _wbc_stage_eager(self, s: LoopState, inp: TickInput) -> tuple[LoopState, Telemetry]:
         cfg, model = self.cfg, self.model
         dt = cfg.wbc_dt
         pcfg = cfg.plant

@@ -38,6 +38,7 @@ from cmw_tpu_torch.core import kinematics as kin
 from cmw_tpu_torch.core import lie
 from cmw_tpu_torch.core.centroidal import GRAVITY
 from cmw_tpu_torch.core.consts import constant_like, eye_like
+from cmw_tpu_torch.runtime import cache
 
 SOLES = ("l_sole", "r_sole")
 
@@ -305,7 +306,21 @@ def dynamics_step(cfg: RigidBodyConfig, model: kin.RobotModel, state: RigidBodyS
     """One control tick: cfg.substeps semi-implicit Euler substeps of dt /
     substeps. q_cmd [B, nj] is the servo set-point; ext_force_base [B, 3]
     (world N, at the base origin) a push. Of `cfg` only `substeps` and
-    `armature` are read: the other parameters come from `state.params`."""
+    `armature` are read: the other parameters come from `state.params`.
+
+    On the card the tick replays the CUDA graph cached for (cfg's value, the
+    model and corners_local by identity, dt, sole_frames, the inputs'
+    shapes), the counterpart of JAX's substep scan
+    (`cmw_tpu/sim/rigid_body.py:460`); on the CPU it runs eagerly."""
+    def tick(st, qc, ef):
+        return _dynamics_step(cfg, model, st, qc, dt, sole_frames, corners_local, ef)
+
+    owner = ("dynamics_step", cfg, cache.Ident(model), dt, sole_frames,
+             None if corners_local is None else cache.Ident(corners_local))
+    return cache.graphed(owner, tick, state, q_cmd, ext_force_base)
+
+
+def _dynamics_step(cfg, model, state, q_cmd, dt, sole_frames, corners_local, ext_force_base):
     cl = corners(state.q, corners_local, len(sole_frames))
     f_ext = torch.zeros_like(state.base_pos) if ext_force_base is None else ext_force_base
     h = dt / cfg.substeps
@@ -329,7 +344,9 @@ def reset_anchors(model: kin.RobotModel, state: RigidBodyState, sole_frames: tup
 def settle(cfg: RigidBodyConfig, model: kin.RobotModel, state: RigidBodyState, q_cmd, dt: float, n_steps: int,
            sole_frames: tuple = SOLES, corners_local: np.ndarray | None = None) -> RigidBodyState:
     """Let the plant sink onto the penalty contact for n_steps control ticks
-    while the servos hold q_cmd (the Gazebo 'spawn, then wait' phase)."""
+    while the servos hold q_cmd (the Gazebo 'spawn, then wait' phase): on the
+    card n_steps replays of the tick's graph, as JAX's scan runs its body
+    (`cmw_tpu/sim/rigid_body.py:521`)."""
     for _ in range(n_steps):
         state = dynamics_step(cfg, model, state, q_cmd, dt, sole_frames, corners_local)
     return state

@@ -27,7 +27,7 @@ import torch
 from cmw_tpu_torch.cmpc.qp import solve_eq_box_qp, solve_eq_qp
 from cmw_tpu_torch.core import kinematics as kin
 from cmw_tpu_torch.core import lie
-from cmw_tpu_torch.core.consts import constant_like, eye_like
+from cmw_tpu_torch.core.consts import constant_like, eye_like, tensor_like
 
 _JOINT_REG_WEIGHT = (
     1.0, 1.0, 1.0, 1.0, 1.0, 1.0,  # left leg   (ik.ini weight rows 1-2)
@@ -124,7 +124,7 @@ def solve_ik(model: kin.RobotModel, q, base_rot, base_pos, targets: IKTargets, c
     w_chest = constant_like(tuple(cfg.chest_weight), q).expand(lead + (3,))
     if targets.chest_w_rp is not None:
         # scale only the world roll/pitch rows; yaw keeps the ik.ini weight
-        rp = torch.as_tensor(targets.chest_w_rp, dtype=q.dtype, device=q.device).expand(lead)
+        rp = tensor_like(targets.chest_w_rp, q).expand(lead)
         w_chest = w_chest * torch.stack([rp, rp, torch.ones_like(rp)], dim=-1)
 
     eye = eye_like(nj, q)
@@ -141,7 +141,7 @@ def solve_ik(model: kin.RobotModel, q, base_rot, base_pos, targets: IKTargets, c
         # angular-momentum velocity-level task: (A_ang / m) nu = L_des
         A_h = kin.centroidal_momentum_matrix(model, lR, lp)
         J_L = A_h[..., 3:6, :] / model.total_mass
-        w_L = torch.as_tensor(targets.ang_mom_w, dtype=q.dtype, device=q.device)[..., None].expand(lead + (3,))
+        w_L = tensor_like(targets.ang_mom_w, q)[..., None].expand(lead + (3,))
         Js = torch.cat([Js, J_L], dim=-2)
         es = torch.cat([es, targets.ang_mom], dim=-1)
         W = torch.cat([W, w_L], dim=-1)
