@@ -73,8 +73,9 @@ calls, alone and fed by the MANN trajectory generator, and checks it:
      MPC's plant one period on between them, as the WBC ticks would); K3 and
      K5 must launch in the phase (K5 sqp_iters
      times per fused solve); printed: the generator's wall per call at
-     B = 1 and B = 256, one profiled generator call (device time, kernels,
-     idle share) and the B = 1 tick's p50;
+     B = 1 and B = 256 eagerly and replayed, one profiled eager generator
+     call (device time, kernels, idle share) and the B = 1 stage's p50,
+     the chain run eagerly and then replayed;
   9. the closed loop, joystick -> MANN -> MPC -> swing foot / ZMP / CoM-ZMP /
      IK -> integration (`cmw_tpu_torch.runtime.loop.WalkingController`, the
      kinematic plant), tick after tick: CLOSED_TICKS at B = 1 on the fused MPC
@@ -113,9 +114,9 @@ calls, alone and fed by the MANN trajectory generator, and checks it:
      at B = 1 split by a checkpoint (--save-state, --resume-state) ending
      where the straight run ends (bitwise, else within CLOSED_TOL), its
      telemetry files loading; printed: the sweep's wall and scenario-s/s,
-     the survivors and the recoverable-push radii, and the graph pool the
-     sweep's own graphs hold at its end (the cache cleared before it; the
-     CLI clears it after its arm, held);
+     the survivors and the recoverable-push radii, and the pool of the
+     sweep's one period graph (held: one graph for both chunks; the cache
+     cleared before it; the CLI clears it after its arm, held);
  12. the remaining entry points, each part with its wall: the dense KKT's
      bf16 option (kkt_dtype="bf16", kkt_f32_tail in BF16_TAILS) as the
      B = 512 x KB = 4 chain, its solves/s beside the f32 dense chain's, and
@@ -143,22 +144,28 @@ calls, alone and fed by the MANN trajectory generator, and checks it:
      on the Riccati, dense and fused paths at B in GRAPH_SOLVE_B, the bench
      chain (B = 512 x KB = 4), `dynamics_step` at B = 1 (the settle's) and
      256 (pushed), `_wbc_stage` on the kinematic and the rigid plant at B = 1
-     and 256, and on both plants GRAPH_TICKS ticks (an MPC stage and its
-     WBC ticks) replayed after GRAPH_TICKS eager ones, against the same
-     ticks run eagerly: bitwise, else within GRAPH_RTOL; the wrappers'
-     counts of a replay (the graph's record of its capture) equal eager's,
-     and the replay's trace holds that many calls' worth of each wrapper's
-     csrc kernels, counted by their names (HAND_KERNELS; the kernels a call
-     from phase 7's profile of one call, else read off an eager call's
-     trace); printed: the capture
-     seconds, the eager wall and the replay wall p50, the replay's device
-     time and the idle shares, the graph pool's memory.
+     and 256, the generator at B = 1 and 256, and on both plants at B = 1
+     and 256 `_mpc_stage` (its pre and post graphs) and one MPC period
+     through `run_episode_blocked` and through `run_episode_fold` (the
+     sweep's fold): bitwise, else within GRAPH_RTOL; the wrappers'
+     counts of a replay (the graphs' records of their captures) equal
+     eager's, and the replay's trace holds that many calls' worth of each
+     wrapper's csrc kernels, counted by their names (HAND_KERNELS; the
+     kernels a call from phase 7's profile of one call, else read off an
+     eager call's trace); printed: the capture seconds (instantiation
+     apart), the pool each check's capture added, the eager wall and the
+     replay wall p50, the replay's device time and the idle shares, the
+     graph pool's memory.
 
-On the card the solve, the bench chain, `dynamics_step` and the WBC stage
+On the card the solve, the bench chain, `dynamics_step`, the generator, the
+WBC stage, the MPC stage's two halves and the blocked episodes' MPC periods
 replay cached CUDA graphs wherever phases 1-13 call them (the rigid settle,
-the episodes, the CLIs); the timed ticks and stages of phases 7-10 and
-every span profile run under `disable_graphs()` (a replay has no spans), as
-they ran before the graphs. A capture or replay failure raises.
+the episodes, the sweep, the CLIs, the walker); the timed ticks and stages
+of phases 7-10 and every span profile run under `disable_graphs()` (a
+replay has no spans), as they ran before the graphs, beside phase 8's
+replayed generator and MPC stage, and so do phase 12's one-shot solves
+(the parity CLI's, the bf16 envelope's). A capture or replay failure
+raises.
 
 It imports nothing of JAX. Without a CUDA device it fails. The last two
 lines are the kernels' JSON record and {"ok": true, "device": {...}}.
@@ -221,7 +228,7 @@ SYMV_RTOL, SYMV_ATOL = 2e-5, 1e-4  # f32 sums in another order (tests/test_ops.p
 # side (n = 512 is the main path's), and nb = 9 past the old cap of 8
 K4_SHAPES = tuple((B, nb) for B in (1, 512) for nb in (1, 2, 4)) + ((3, 9),)
 ADMM_ITERS = 24  # the production admm_iters
-WARM_TICKS = 12  # phase 7's timed B = 1 warm ticks a path, after a cold one (cut from 20 for the script's time)
+WARM_TICKS = 4  # phase 7's timed B = 1 warm ticks a path after a cold one (cut from 20, 12, then 6, for time)
 # horizons (T at dt = 0.06) past the production T = 20 whose sizes take K5's
 # other launches: 16 blocks a cluster (T = 22), one block per scenario with the
 # lists (T = 33) and without them, every scenario on the dense branch (T = 60)
@@ -367,17 +374,28 @@ def check_spd_inverse(name, M):
 # times CUDA events'). Where phase 1's probe finds that the profiler records
 # nothing, no profile is taken.
 PROFILE_PASSES = 3
-FENCE, FENCE_PADS, FENCE_WAIT_S = "spin_kernel(", 64, 0.02
+# late in this long script the profiler has lost a session's first records:
+# 4-48 of a K3 profile, once 66 (64 fences then and 2 kernels of a replay)
+FENCE, FENCE_PADS, FENCE_WAIT_S = "spin_kernel(", 512, 0.02
 PROFILER_RECORDS = [True]
 
 
-@contextlib.contextmanager
-def fenced_profile():
-    """A torch.profiler session (host and card) around the body, fenced."""
-    from torch.profiler import ProfilerActivity, profile as torch_profile
+class RawProfile(torch.autograd.profiler.profile):
+    """The autograd profiler (host and card) with its Python event list left
+    empty: the profiles read the raw events (`raw_events`), and building the
+    list takes ~0.1 ms an event, which torch 2.11 does on leaving every
+    session (~25 s for a rigid MPC period's 282k kernels)."""
 
+    def _parse_kineto_results(self, *args, **kwargs):
+        return []
+
+
+@contextlib.contextmanager
+def fenced_profile(host=True):
+    """A profiler session around the body, fenced: the card's work, and with
+    host the host's ops (the spans, the kernels' launch times)."""
     torch.cuda.synchronize()
-    with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with RawProfile(use_device="cuda", use_kineto=True, use_cpu=host) as prof:
         for _ in range(FENCE_PADS):
             torch.cuda._sleep(1000)
         torch.cuda.synchronize()
@@ -394,36 +412,57 @@ def whole(names):
     return bool(names) and FENCE in names[0] and FENCE in names[-1]
 
 
-def profile(fn):
-    """One fenced torch.profiler pass over one call of `fn`: [(event key,
-    launches, device ms)] of the kernels, copies and fills it ran on the
-    card; empty where the pass did not keep the whole call."""
+def raw_events(prof):
+    """A finished session's raw events (kineto_results, not a public API):
+    they carry the launch times of the kernels' host calls."""
+    results = getattr(prof, "kineto_results", None)
+    require(results is not None and hasattr(results, "events"),
+            f"torch {torch.__version__}'s profiler has no kineto_results.events(), which the profiles read")
+    return results.events()
+
+
+def card_events(events):
+    """[(start ns, name, duration ns)] of the kernels, copies and fills
+    among a session's raw events, in the order they started."""
     from torch.autograd import DeviceType
 
+    return sorted((e.start_ns(), e.name(), e.duration_ns()) for e in events
+                  if e.device_type() == DeviceType.CUDA and not e.is_user_annotation())
+
+
+def profile(fn, warm=True):
+    """One fenced pass of the profiler over one call of `fn` (after one
+    unprofiled call, with warm): [(event key, launches, device ms)] of the
+    kernels, copies and fills it ran on the card; empty where the pass did
+    not keep the whole call."""
     if not PROFILER_RECORDS[0]:
         return []
-    fn()
-    with fenced_profile() as prof:
+    if warm:
         fn()
-    events = sorted((e for e in prof.events()
-                     if e.device_type == DeviceType.CUDA and not getattr(e, "is_user_annotation", False)),
-                    key=lambda e: e.time_range.start)
-    if not whole([e.name for e in events]):
+    with fenced_profile(host=False) as prof:
+        fn()
+    events = card_events(raw_events(prof))
+    names = [name for _, name, _ in events]
+    if not whole(names):
+        fences = [i for i, name in enumerate(names) if FENCE in name]
+        print(f"profile pass not whole: {len(names)} events on the card, {len(fences)} fences of {FENCE_PADS + 1} "
+              f"(at {fences[:2]} ... {fences[-2:]}), first {[n[:40] for n in names[:2]]}, last "
+              f"{[n[:40] for n in names[-2:]]}")
         return []
     rows = {}
-    for e in events:
-        if FENCE not in e.name:
-            row = rows.setdefault(e.name, [0, 0.0])
+    for _, name, ns in events:
+        if FENCE not in name:
+            row = rows.setdefault(name, [0, 0.0])
             row[0] += 1
-            row[1] += e.time_range.elapsed_us() / 1e3
+            row[1] += ns / 1e6
     return [(key, count, ms) for key, (count, ms) in rows.items()]
 
 
-def traced(fn):
-    """profile(fn)'s rows from the first of PROFILE_PASSES passes that kept
-    the whole call, or None."""
+def traced(fn, warm=True):
+    """profile(fn, warm)'s rows from the first of PROFILE_PASSES passes that
+    kept the whole call, or None."""
     for _ in range(PROFILE_PASSES):
-        rows = profile(fn)
+        rows = profile(fn, warm)
         if rows:
             return rows
     return None
@@ -609,7 +648,8 @@ def push_saturates_box(solver, cfg):
 # (cmw_tpu/runtime/loop.py:508-1053 on the kinematic plant, while moving)
 
 MANN_SPEED = 0.05  # m/s: the synthetic weights' forward base motion
-RECEDING_TICKS = 6  # phase 8's B = 1 receding fused ticks (cut from 11 for the script's time)
+RECEDING_TICKS = 6  # phase 8's B = 1 receding fused ticks, replayed (cut from 11 for the script's time)
+RECEDING_EAGER = 3  # the same chain's first ticks eagerly (cut from 6 for the script's time)
 # card f32 vs the port's CPU f64, per generator channel after 40 steps; the
 # CPU's own f32-vs-f64 gap on the same rollouts is ~1e-7 (com) and ~4e-7
 # (angular momentum), so these allow two orders of magnitude for the card's
@@ -808,17 +848,14 @@ def phase_mann_mpc(tag):
         def call():
             return G.generate_with_states(gen_cfg, model, weights, state, desired)
 
-        call()
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        for _ in range(3):
-            call()
-        torch.cuda.synchronize()
-        wall[B] = (time.perf_counter() - t) / 3 * 1e3
-        print(f"phase 8 time generator B={B}: {wall[B]:.1f} ms per generate_with_states call "
-              f"({gen_cfg.n_steps} steps, wall, mean of 3) {tag}")
+        replayed = timed(call, 3)  # the graph was captured by the call above
+        with RC.disable_graphs():
+            wall[B] = float(timed(call, 3).mean())
+        print(f"phase 8 time generator B={B}: {wall[B]:.1f} ms per generate_with_states call eagerly, "
+              f"{np.percentile(replayed, 50):.2f} ms p50 replayed ({gen_cfg.n_steps} steps, wall, 3 calls each) {tag}")
         if B == 1:
-            d = device_time(call)
+            with RC.disable_graphs():
+                d = device_time(call)
             if d is None:
                 print(f"phase 8 profile generator B=1: {NOT_PROFILED} {tag}")
             else:
@@ -867,32 +904,37 @@ def phase_mann_mpc(tag):
               f"(max |cost| {float(cb.abs().max()):.3f}), prim {prim:.2e}: {'ok' if good else 'FAIL'}")
         require(good, f"MANN -> MPC sentinel failed: {name}")
 
-    s = fused.initial_state(1, q0=q0, base_rot0=rot0)
+    # the B = 1 receding chain eagerly (timed as before the graphs), then
+    # replayed (pre and post graphs around the stage's host read)
     inp1 = RL.TickInput(joysticks(1), zeros[:1], zeros[:1])
-    t_tick = []
-    for k in range(RECEDING_TICKS):
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        with RC.disable_graphs():  # timed eagerly, as before the graphs
-            s = fused._mpc_stage(s, inp1)
-        torch.cuda.synchronize()
-        t_tick.append((time.perf_counter() - t) * 1e3)
-        n_fused += 1
-        require(float(s.mpc_prim.max()) < 1e-2, f"MANN -> MPC tick {k}: prim_res {float(s.mpc_prim.max())}")
-        require(bool(torch.isfinite(s.warm.z).all()), f"MANN -> MPC tick {k}: non-finite z")
-        cost = float(s.mpc_cost[0])
-        s = coast(fused, s)
+    lat = {}
+    for mode, ticks in (("eager", RECEDING_EAGER), ("replayed", RECEDING_TICKS)):
+        s = fused.initial_state(1, q0=q0, base_rot0=rot0)
+        t_tick = []
+        for k in range(ticks):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            with RC.disable_graphs() if mode == "eager" else contextlib.nullcontext():
+                s = fused._mpc_stage(s, inp1)
+            torch.cuda.synchronize()
+            t_tick.append((time.perf_counter() - t) * 1e3)
+            n_fused += 1
+            require(float(s.mpc_prim.max()) < 1e-2, f"MANN -> MPC tick {k}: prim_res {float(s.mpc_prim.max())}")
+            require(bool(torch.isfinite(s.warm.z).all()), f"MANN -> MPC tick {k}: non-finite z")
+            cost = float(s.mpc_cost[0])
+            s = coast(fused, s)
+        lat[mode] = np.array(t_tick[1:])  # warm stages (the first replayed one captures)
     launches = read_launches()
     com = s.x9[0, :3].tolist()
-    print(f"phase 8 MANN -> MPC main path: 2 B=256 MPC stages (fused, riccati) and {RECEDING_TICKS} B=1 fused "
-          f"stages, each calling the generator and re-rooting it {fused.cfg.mann_advance} knots in (t = "
-          f"{float(s.t[0]):.2f} s, CoM {[round(c, 4) for c in com]}, last cost {cost:.4f}); launches {launches}")
+    print(f"phase 8 MANN -> MPC main path: 2 B=256 MPC stages (fused, riccati) and {RECEDING_EAGER} + "
+          f"{RECEDING_TICKS} B=1 fused stages (eager, replayed), each calling the generator and re-rooting it {fused.cfg.mann_advance} knots in "
+          f"(t = {float(s.t[0]):.2f} s, CoM {[round(c, 4) for c in com]}, last cost {cost:.4f}); launches {launches}")
     require(launches["spd_inverse"] > 0 and launches["admm_fused"] == cfg_fused.sqp_iters * n_fused,
             f"MANN -> MPC launches {launches}, expected admm_fused {cfg_fused.sqp_iters} x {n_fused} fused solves")
-    lat = np.array(t_tick[1:])
-    print(f"phase 8 time MANN -> MPC fused B=1 MPC stage (generator + solve, warm, eager): p50 "
-          f"{np.percentile(lat, 50):.1f} ms, p90 {np.percentile(lat, 90):.1f} ms, max {lat.max():.1f} ms "
-          f"({len(lat)} stages) {tag}")
+    for mode, x in lat.items():
+        print(f"phase 8 time MANN -> MPC fused B=1 MPC stage (generator + solve, warm, {mode}): p50 "
+              f"{np.percentile(x, 50):.1f} ms, p90 {np.percentile(x, 90):.1f} ms, max {x.max():.1f} ms "
+              f"({len(x)} stages) {tag}")
     return launches, weights
 
 
@@ -901,6 +943,7 @@ def phase_mann_mpc(tag):
 
 CLOSED_TICKS = 90  # 0.18 s of gait: 3 MPC ticks, each a generator call (cut from 150 for the script's time)
 CLOSED_PERIOD = 30  # ticks of one MPC period (mpc_every at the 60 ms MPC, 2 ms WBC)
+MPC_WALL_CALLS = 1  # phase 9's eager MPC-stage walls a batch (cut from 3 for the script's time)
 # card f32 against the port's CPU f64 over the first MPC period, per channel,
 # of max(1, max |CPU value|): the CPU's own f32-vs-f64 gap there is at most
 # 1.5e-5 (forces0, dq_cmd), 7.6e-5 (mpc_cost) and 2.6e-6 elsewhere (B = 1,
@@ -1012,17 +1055,11 @@ def span_profile(fn):
     with fenced_profile() as prof:
         fn()
     spans = {name: [0.0, 0, 0.0] for name in SPANS + ("outside the spans",)}
-    # the launch times of the kernels' host calls are in the profiler's raw
-    # events (kineto_results, not a public API); the averaged events only link
-    # a kernel to its op, not to a span open on another thread
-    results = getattr(getattr(prof, "profiler", None), "kineto_results", None)
-    require(results is not None and hasattr(results, "events"),
-            f"span_profile: torch {torch.__version__}'s profiler has no kineto_results.events(), which this "
-            f"attribution by launch time reads")
-    events = results.events()
-    on_card = sorted((e.start_ns(), e.name()) for e in events
-                     if e.device_type() == DeviceType.CUDA and not e.is_user_annotation())
-    if not whole([name for _, name in on_card]):
+    # the launch times of the kernels' host calls are in the raw events; the
+    # averaged events only link a kernel to its op, not to a span open on
+    # another thread
+    events = raw_events(prof)
+    if not whole([name for _, name, _ in card_events(events)]):
         return None
     opened = sorted((e.start_ns(), e.end_ns(), e.name()) for e in events
                     if e.device_type() == DeviceType.CPU and e.name() in SPANS)
@@ -1139,19 +1176,14 @@ def phase_closed_loop(tag, weights, dev="cuda"):
               f"waited for the card in 3 ticks under the mode: {sum(n_sync.values())} {n_sync or ''} {tag}")
         require(not n_sync, f"WBC tick B={B}: operations waited for the card: {n_sync}")
     for B, c, s_at, inp in ((1, ctl, s_end, inp1), (256, ctl_l, s60, inp256)):
-        walls = []
-        for _ in range(3):
-            torch.cuda.synchronize()
-            t = time.perf_counter()
-            with RC.disable_graphs():
-                c._mpc_stage(s_at, inp)
-            torch.cuda.synchronize()
-            walls.append((time.perf_counter() - t) * 1e3)
-        print(f"phase 9 time MPC stage B={B} (generator call + fused solve + glue, eager): "
-              f"{', '.join(f'{x:.1f}' for x in walls)} ms (wall, 3 calls) {tag}")
+        with RC.disable_graphs():
+            walls = timed(lambda: c._mpc_stage(s_at, inp), MPC_WALL_CALLS)
+        replayed = timed(lambda: c._mpc_stage(s_at, inp), 3)
+        print(f"phase 9 time MPC stage B={B} (generator call + fused solve + glue): eager "
+              f"{', '.join(f'{x:.1f}' for x in walls)} ms ({MPC_WALL_CALLS} call), replayed p50 "
+              f"{np.percentile(replayed, 50):.1f} ms (3 calls; wall) {tag}")
     period_in = tick_inputs(joy, every)
     with RC.disable_graphs():  # a replay has no spans
-        mpc_period(ctl_l, s60, period_in, S)  # warm
         torch.cuda.synchronize()
         t = time.perf_counter()
         mpc_period(ctl_l, s60, period_in, S)
@@ -1177,7 +1209,7 @@ def phase_closed_loop(tag, weights, dev="cuda"):
 # (cmw_tpu/runtime/loop.py WalkingController with cfg.rigid, sim/rigid_body.py)
 
 RIGID_TICKS = 60  # 2 MPC ticks standing at B = 1 (cut from 90 for the script's time)
-RIGID_WALL_TICKS = 15  # timed rigid WBC ticks at B = 1 and 256 (cut from 29 for the script's time)
+RIGID_WALL_TICKS = 8  # timed rigid WBC ticks at B = 1 and 256 (cut from 29, then 15, for the script's time)
 RIGID_SWEEP_B = 256
 RIGID_SWEEP_TICKS = 60  # 2 MPC ticks at B = 256; the lifted left foot swings from tick 30
 RIGID_CHECKED = 4  # items of the B = 256 sweep held against the CPU
@@ -1296,25 +1328,45 @@ def settle_gaps(s, s64):
             for n, a, b in pairs + [("x9", s.x9, s64.x9)]}
 
 
-@contextlib.contextmanager
-def beside(fn: str, *args: str):
-    """Runs chip_smoke.<fn>(*args) in a process of its own, with no card,
-    while the block runs: a CPU reference that reads nothing the card
-    computes. The block's end waits for it (at most 600 s) and requires exit
-    0, and writes the seconds it waited into the yielded dict ("waited");
-    the process is killed if the block fails."""
-    proc = subprocess.Popen([sys.executable, "-c", f"import sys, chip_smoke; chip_smoke.{fn}(*sys.argv[1:])", *args],
-                            cwd=os.path.dirname(os.path.abspath(__file__)), env=dict(os.environ, CUDA_VISIBLE_DEVICES=""))
-    out = {}
-    try:
-        yield out
+class Beside:
+    """chip_smoke.<fn>(*args) in a process of its own, with no card: a CPU
+    reference that reads nothing the card computes, started at once (main()
+    starts the references of phases 10 and 11 with the script, so that they
+    run beside phases 1-9 too). done() waits for it (at most 600 s), requires
+    exit 0 and returns the seconds it waited; stop() kills it if it runs."""
+
+    def __init__(self, fn: str, *args: str):
+        self.fn = fn
+        self.proc = subprocess.Popen(
+            [sys.executable, "-c", f"import sys, chip_smoke; chip_smoke.{fn}(*sys.argv[1:])", *args],
+            cwd=os.path.dirname(os.path.abspath(__file__)), env=dict(os.environ, CUDA_VISIBLE_DEVICES=""))
+
+    def done(self) -> float:
         t = time.perf_counter()
-        require(proc.wait(timeout=600) == 0, f"the CPU reference {fn} exited {proc.returncode}")
-        out["waited"] = time.perf_counter() - t
+        require(self.proc.wait(timeout=600) == 0, f"the CPU reference {self.fn} exited {self.proc.returncode}")
+        return time.perf_counter() - t
+
+    def stop(self) -> None:
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+
+
+@contextlib.contextmanager
+def references(directory):
+    """The CPU f64 references of phases 10 and 11, started now beside the
+    card's work, their files in directory: {"settle": (Beside, checkpoint
+    path), "sweep": (Beside, MANN ONNX path, npz path)}. Stopped on leaving."""
+    settle = os.path.join(directory, "settle64.npz")
+    mann = write_mann(directory)
+    sweep = os.path.join(directory, "sweep_reference.npz")
+    refs = {"settle": (Beside("rigid_settle_reference", settle), settle),
+            "sweep": (Beside("sweep_reference", mann, sweep), mann, sweep)}
+    try:
+        yield refs
     finally:
-        if proc.poll() is None:
-            proc.kill()
-            proc.wait()
+        for ref in refs.values():
+            ref[0].stop()
 
 
 def rigid_setup():
@@ -1387,9 +1439,10 @@ def sweep_params(B, gen):
     return mu, kp
 
 
-def phase_rigid_loop(tag, dev="cuda"):
+def phase_rigid_loop(tag, settle, dev="cuda"):
     """Phase 10: the walking controller on the rigid-body plant, joystick ->
     MANN -> MPC -> IK -> Lagrangian dynamics, tick after tick on the card.
+    settle: references()' (Beside, checkpoint path) of the CPU f64 settle.
     Returns the launches of its main path (the B = 1 and B = 256 episodes)."""
     t_phase = time.perf_counter()
     cfg, model, W, Wl = rigid_setup()
@@ -1413,17 +1466,16 @@ def phase_rigid_loop(tag, dev="cuda"):
     ctl_l.polished_initial_pose()  # the IK polish, timed apart from the settle
     ctl_l.polished_initial_pose(drop=0.0)
     torch.cuda.synchronize()
-    with tempfile.TemporaryDirectory() as tmp:
-        settle64 = os.path.join(tmp, "settle64.npz")
-        with beside("rigid_settle_reference", settle64) as ref:
-            zero_launches()
-            t = time.perf_counter()
-            s_init = ctl_l.initial_state(B)  # initial_state reads no weights: item 0 starts the B = 1 run too
-            torch.cuda.synchronize()
-            settle_s = time.perf_counter() - t
-        s0 = items_of(s_init, slice(0, 1))
-        s0_cpu = checkpoint.load(settle64, to_cpu64(s0))
-        cpu_settle_s = checkpoint.load_meta(settle64)["wall"]
+    ref, settle64 = settle
+    zero_launches()
+    t = time.perf_counter()
+    s_init = ctl_l.initial_state(B)  # initial_state reads no weights: item 0 starts the B = 1 run too
+    torch.cuda.synchronize()
+    settle_s = time.perf_counter() - t
+    waited = ref.done()
+    s0 = items_of(s_init, slice(0, 1))
+    s0_cpu = checkpoint.load(settle64, to_cpu64(s0))
+    cpu_settle_s = checkpoint.load_meta(settle64)["wall"]
     fz = float(s0.rb.corner_forces[..., 2].sum())
     nu = float(s0.rb.nu.abs().max())
     require(abs(fz - mg) / mg < 0.1 and nu < 0.1, f"rigid settle: corner fz {fz} N against mg {mg} N, max|nu| {nu}")
@@ -1435,7 +1487,7 @@ def phase_rigid_loop(tag, dev="cuda"):
             "rigid settle: active corners differ between the card and the CPU")
     print(f"phase 10 rigid settle: initial_state({B}), {n_settle} control ticks ({cfg.rigid.substeps} substeps "
           f"each) on one item, {settle_s:.2f} s on the card (f32; the CPU's f64 settle {cpu_settle_s:.2f} s in a process "
-          f"beside it, {ref['waited']:.1f} s waited for after it); total "
+          f"started with the script, {waited:.1f} s waited for after it); total "
           f"corner fz {fz:.1f} N against mg {mg:.1f} N ({100 * (fz - mg) / mg:+.2f} %), max|nu| {nu:.2e}; against "
           f"the CPU f64 settle: active corners identical, largest gap / max(1, |value|) {worst[0]:.2e} ({worst[1]}) "
           f"{tag}")
@@ -1639,7 +1691,8 @@ def sweep_items(dtype, mann, call, device="cpu", **mpc):
     costs, fold_episode = [], ctl.run_episode_fold
     ctl.run_episode_fold = lambda s, inp, fold, acc0: fold_episode(
         s, inp, lambda acc, tel: costs.append(tel.mpc_cost) or fold(acc, tel), acc0)
-    with recorded_sweep() as rec:
+    # eagerly: the recording fold's side effect would run only in a graph's capture
+    with recorded_sweep() as rec, RC.disable_graphs():
         survived, _ = DS._shard_metrics(ctl, items_of(s0, idx), items_of(inputs, idx), False,
                                         up_thresh=call[1]["up_thresh"], model_guards=call[1]["model_guards"])
     return (survived.cpu().numpy(), [m.cpu().numpy() for m in rec["metrics"][0]],
@@ -1649,9 +1702,9 @@ def sweep_items(dtype, mann, call, device="cpu", **mpc):
 def sweep_reference(mann, path):
     """Writes the CPU f64 reference of SWEEP_CHECKED to the npz file path:
     sweep_items on the run_sweep call the sweep CLI makes with --cpu,
-    that call's keywords and configuration, and the wall. Phase 11 runs it
-    in a process of its own beside the card's sweep, whose results it does
-    not read."""
+    that call's keywords and configuration, and the wall. main() runs it in
+    a process of its own (`references`) beside the card's work, whose
+    results it does not read."""
     torch.set_num_threads(2)
     t = time.perf_counter()
     call = sweep_call_cpu(mann)
@@ -1725,28 +1778,28 @@ def checkpoint_gap(a, b):
     return worst, same
 
 
-def phase_sweep(tag):
+def phase_sweep(tag, sweep):
     """Phase 11: the push-recovery sweep through `apps.sweep.main` on the
     card (SWEEP_ARGS), its largest pushes against the port on the CPU in
     f64, and the walk CLI split by a checkpoint against a straight run.
-    Returns the launches of the sweep."""
+    sweep: references()' (Beside, MANN ONNX path, npz path) of the CPU f64
+    reference. Returns the launches of the sweep."""
     from cmw_tpu_torch.apps import sweep as sweep_app
     from cmw_tpu_torch.apps import walk as walk_app
 
     t_phase = time.perf_counter()
+    ref, mann, reference = sweep
     with tempfile.TemporaryDirectory() as tmp:
-        mann = write_mann(tmp)
-        reference = os.path.join(tmp, "reference.npz")
-        with beside("sweep_reference", mann, reference) as ref:
-            # --- 512 scenarios through the CLI ----------------------------------
-            printed = io.StringIO()
-            RC.clear()  # the pool holds the sweep's graphs alone
-            zero_launches()
-            t = time.perf_counter()
-            with recorded_sweep() as rec, contextlib.redirect_stdout(printed):
-                sweep_app.main(SWEEP_ARGS + ["--mann", mann])
-            wall = time.perf_counter() - t
-            launches = read_launches()
+        # --- 512 scenarios through the CLI ----------------------------------
+        printed = io.StringIO()
+        RC.clear()  # the pool holds the sweep's graphs alone
+        zero_launches()
+        t = time.perf_counter()
+        with recorded_sweep() as rec, contextlib.redirect_stdout(printed):
+            sweep_app.main(SWEEP_ARGS + ["--mann", mann])
+        wall = time.perf_counter() - t
+        launches = read_launches()
+        waited = ref.done()
         out = json.loads(printed.getvalue().strip().splitlines()[-1])
         require(set(out) == SWEEP_KEYS, f"sweep CLI keys {sorted(out)} are not the JAX CLI's {sorted(SWEEP_KEYS)}")
         stats = [out[k] for k in ("survival_rate", "mean_supp_dev", "max_supp_dev")]
@@ -1765,9 +1818,11 @@ def phase_sweep(tag):
               f"m/s^2 {tag}")
         pool, graphs = rec["pool"][0]
         require(not RC.entries(), "the sweep CLI left its graphs in the cache")
-        print(f"phase 11 sweep CLI graph pool at its end: {pool / 2**20:.0f} MiB in {graphs} graphs (B {SWEEP_B}, "
-              f"chunks of {SWEEP_CHUNK}); cache.clear() after the arm left {len(RC.entries())} graphs, device memory "
-              f"reserved {torch.cuda.memory_reserved() / 2**20:.0f} MiB {tag}")
+        require(graphs == 1, f"the sweep CLI held {graphs} graphs: its two chunks should replay one period graph")
+        print(f"phase 11 sweep CLI period graph (one MPC period, folded, replayed {stages} times over the two chunks): "
+              f"its pool at the sweep's end {pool / 2**20:.0f} MiB (B {SWEEP_B}, chunks of {SWEEP_CHUNK}); "
+              f"cache.clear() after the arm left {len(RC.entries())} graphs, device memory reserved "
+              f"{torch.cuda.memory_reserved() / 2**20:.0f} MiB {tag}")
 
         # --- the largest pushes against the CPU in f64 ---------------------------
         ctl, kw = rec["calls"][0]
@@ -1783,8 +1838,8 @@ def phase_sweep(tag):
         gaps = metric_gaps(card, m64)
         for name, gap in gaps.items():
             require(gap <= SWEEP_TOL[name], f"sweep {name} card vs CPU f64 {gap} (limit {SWEEP_TOL[name]})")
-        print(f"phase 11 sweep items {idx} card f32 vs CPU f64 ({cpu_wall:.1f} s on the CPU in a process beside the "
-              f"sweep, {ref['waited']:.1f} s waited for after it): survived {surv_card} on both; gap / max(1, |value|) "
+        print(f"phase 11 sweep items {idx} card f32 vs CPU f64 ({cpu_wall:.1f} s on the CPU in a process started "
+              f"with the script, {waited:.1f} s waited for after the sweep): survived {surv_card} on both; gap / max(1, |value|) "
               f"{', '.join(f'{n} {g:.2e}' for n, g in gaps.items())}; supp_dev {card[0].tolist()} {tag}")
 
         # --- the walk CLI split by a checkpoint ----------------------------------
@@ -1897,7 +1952,8 @@ def phase_remaining(tag, cfg_dense):
     env32 = dataclasses.replace(cfg_dense, **BF16_ENVELOPE)
     params = BENCH.make_params(env32, lateral(BF16_PUSHES))
     ref = CentroidalMPCSolver(env32)
-    ref = ref.solve(params, ref.cold_start(len(BF16_PUSHES)))
+    with RC.disable_graphs():  # a one-shot solve: a capture would run it twice more
+        ref = ref.solve(params, ref.cold_start(len(BF16_PUSHES)))
     zero_launches()  # the f32 runs above launch K4; the bf16 runs below must not
     rates = {}
     for tail in BF16_TAILS:  # bench.py's bf16_kkt_solves_per_s; the chain is not converged: prim_res printed
@@ -1907,7 +1963,8 @@ def phase_remaining(tag, cfg_dense):
     envelope = {}
     for tail in BF16_TAILS:
         solver = CentroidalMPCSolver(dataclasses.replace(env32, kkt_dtype="bf16", kkt_f32_tail=tail))
-        sol = solver.solve(params, solver.cold_start(len(BF16_PUSHES)))
+        with RC.disable_graphs():  # one-shot
+            sol = solver.solve(params, solver.cold_start(len(BF16_PUSHES)))
         off, prim = float(((sol.cost - ref.cost) / ref.cost).abs().max()), float(sol.prim_res.max())
         envelope[tail] = (off, prim)
         require(prim < BF16_PRIM_MAX and off < BF16_COST_RTOL,
@@ -1925,7 +1982,9 @@ def phase_remaining(tag, cfg_dense):
 
     # --- the parity CLI on the card ------------------------------------------------
     t = time.perf_counter()
-    with contextlib.redirect_stdout(io.StringIO()):
+    # its three solves are one-shot (one per case): eagerly, as a capture
+    # would run each twice more for a single replay
+    with contextlib.redirect_stdout(io.StringIO()), RC.disable_graphs():
         out = parity_app.main([])
     require(out["parity_ok"], f"parity CLI: {out}")
     print(f"phase 12 parity CLI (apps.parity.main([]), solve on the card, SLSQP oracle in processes beside it): "
@@ -2072,8 +2131,7 @@ def phase_benchmarks(tag):
 # body of its episode)
 
 GRAPH_RTOL = 1e-6  # where a replay is not bitwise eager's: largest |replay - eager| / max|eager| of an output
-GRAPH_REPLAY_REPS = 5  # replays timed a function
-GRAPH_TICKS = 30  # the eager prefix and the replayed segment of the closed loop: one MPC period each
+GRAPH_REPLAY_REPS = 2  # replays timed a function (cut from 5 for the script's time)
 GRAPH_SOLVE_B = (1, 512)  # the solve's batches (the last also the bench chain's)
 GRAPH_WIDE_B = 256  # the plant's and the WBC stage's wide batch
 # the csrc kernels (top-level anonymous namespace) by their names in a trace,
@@ -2137,15 +2195,16 @@ def timed(fn, reps):
     return np.array(out)
 
 
-def graph_check(name, owner, fn, args, key_args, tag):
+def graph_check(name, fn, args, keys, tag):
     """fn(*args) replayed against itself under disable_graphs() on the same
     inputs: bitwise, else within GRAPH_RTOL; the wrappers' counts of a
-    replay (the graph's record) equal eager's, and the replay's trace holds
-    that many calls' worth of each wrapper's csrc kernels, counted by name
-    (KERNELS_PER_CALL: phase 7's, else read off the first eager call's trace
-    that runs the wrapper). Prints the capture seconds, the eager call's wall and the
-    replays' p50, the replay's device time and the idle shares, and the pool.
-    key_args: the arguments of the graphed call inside fn (its key)."""
+    replay (the records of the graphs it replays) equal eager's, and the
+    replay's trace holds that many calls' worth of each wrapper's csrc
+    kernels, counted by name (KERNELS_PER_CALL: phase 7's, else read off the
+    first eager call's trace that runs the wrapper). Prints the capture
+    seconds, the eager call's wall and the replays' p50, the replay's device
+    time and the idle shares, and the pool. keys: [(owner, arguments)] of
+    the graphed calls fn makes (their cache keys)."""
     t_check = time.perf_counter()
     with RC.disable_graphs():
         zero_launches()
@@ -2155,7 +2214,8 @@ def graph_check(name, owner, fn, args, key_args, tag):
         torch.cuda.synchronize()
         eager_ms = (time.perf_counter() - t) * 1e3
         l_eager = read_launches()
-    fresh = RC.lookup(owner, *key_args) is None
+    fresh = [RC.lookup(owner, *key_args) is None for owner, key_args in keys]
+    pool0 = RC.pool_bytes()
     zero_launches()
     torch.cuda.synchronize()
     t = time.perf_counter()
@@ -2163,8 +2223,8 @@ def graph_check(name, owner, fn, args, key_args, tag):
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t
     l_first = read_launches()
-    entry = RC.lookup(owner, *key_args)
-    require(entry is not None, f"graphs {name}: no graph was captured")
+    entries = [RC.lookup(owner, *key_args) for owner, key_args in keys]
+    require(all(e is not None for e in entries), f"graphs {name}: a graph was not captured")
     zero_launches()
     again = fn(*args)
     torch.cuda.synchronize()
@@ -2197,56 +2257,29 @@ def graph_check(name, owner, fn, args, key_args, tag):
         require(gap <= GRAPH_RTOL, f"graphs {name}: replay differs from eager by {gap} ({leaf})")
     replay = timed(lambda: fn(*args), GRAPH_REPLAY_REPS)
     r50 = float(np.percentile(replay, 50))
-    rows = traced(lambda: fn(*args))
+    rows = traced(lambda: fn(*args), warm=False)  # the replays above warmed it
     require(rows is not None, f"graphs {name}: the replay's trace: {NOT_PROFILED}")
     in_trace = hand_launches(rows)
-    recorded = {k: n * KERNELS_PER_CALL.get(k, 0) for k, n in entry_launches(entry).items()}
-    require(in_trace == recorded, f"graphs {name}: csrc kernels in the replay's trace {in_trace}, the graph's "
-                                  f"record {entry_launches(entry)} x kernels a call {KERNELS_PER_CALL} = {recorded}")
+    record = {k: sum(entry_launches(e)[k] for e in entries) for k in KERNELS}
+    recorded = {k: n * KERNELS_PER_CALL.get(k, 0) for k, n in record.items()}
+    require(in_trace == recorded, f"graphs {name}: csrc kernels in the replay's trace {in_trace}, the graphs' "
+                                  f"record {record} x kernels a call {KERNELS_PER_CALL} = {recorded}")
     d = device_total(rows)
     dev = (f"device {d[0]:.3f} ms in {d[1]} kernels, copies and fills a replay, idle share {1 - d[0] / r50:.3f} "
            f"replayed, {1 - d[0] / eager_ms:.3f} eager (the same kernels)")
+    capture = " + ".join(f"{e.capture_s:.2f} (instantiate {e.instantiate_s:.2f})" for e in entries)
     print(f"phase 14 graphs {name}: {held}; launches a replay {l_replay} = eager's, csrc kernels in its trace "
-          f"{in_trace} (by name); capture "
-          f"{entry.capture_s:.2f} s ({'this call' if fresh else 'earlier'}; first call {first_s:.2f} s); wall eager "
-          f"{eager_ms:.2f} ms (the compared call), replay p50 {r50:.2f} ms ({len(replay)}); {dev}; graph pool "
-          f"{RC.pool_bytes() / 2**20:.0f} MiB, {len(RC.entries())} graphs; {time.perf_counter() - t_check:.1f} s "
-          f"{tag}")
+          f"{in_trace} (by name); capture {capture} s ({len(entries)} graph{'s' if len(entries) > 1 else ''}, "
+          f"{'this call' if all(fresh) else 'earlier' if not any(fresh) else 'some earlier'}; first call "
+          f"{first_s:.2f} s, pool +{(RC.pool_bytes() - pool0) / 2**20:.0f} MiB); wall eager {eager_ms:.2f} ms (the "
+          f"compared call), replay p50 {r50:.2f} ms ({len(replay)}); {dev}; graph pool "
+          f"{RC.pool_bytes() / 2**20:.0f} MiB, {len(RC.entries())} graphs; {time.perf_counter() - t_check:.1f} s {tag}")
+    return eager_ms, r50
 
 
 def entry_launches(entry):
     """A graph's record of its wrappers' calls, by KERNELS' names."""
     return dict(zip(KERNELS, entry.launches))
-
-
-def loop_check(name, ctl, s0, inputs, tag):
-    """GRAPH_TICKS eager ticks, then GRAPH_TICKS more from the same state,
-    replayed (the WBC stage's graph, the solve's inside the MPC stage) and
-    eagerly: bitwise, else within GRAPH_RTOL."""
-    S = GRAPH_TICKS
-    with RC.disable_graphs():
-        s_mid, _ = ctl.run_episode(s0, RL.TickInput(*(a[:, :S] for a in inputs)))
-        seg = RL.TickInput(*(a[:, S:] for a in inputs))
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        s_e, tel_e = ctl.run_episode(s_mid, seg)
-        torch.cuda.synchronize()
-        eager_s = time.perf_counter() - t
-    zero_launches()
-    torch.cuda.synchronize()
-    t = time.perf_counter()
-    s_g, tel_g = ctl.run_episode(s_mid, seg)
-    torch.cuda.synchronize()
-    replay_s = time.perf_counter() - t
-    launches = read_launches()
-    sqp = ctl.cfg.mpc.sqp_iters
-    require(launches["admm_fused"] == sqp, f"graphs {name}: launches {launches}, expected admm_fused {sqp}")
-    same, gap, leaf = tree_gap((s_g, tel_g), (s_e, tel_e))
-    held = "telemetry and final state bitwise equal" if same else f"largest gap / max|eager| {gap:.3e} ({leaf})"
-    require(same or gap <= GRAPH_RTOL, f"graphs {name}: the replayed segment differs by {gap} ({leaf})")
-    print(f"phase 14 graphs {name}: {S} ticks (1 MPC stage, eager around its solve's replay, + {S} WBC replays) "
-          f"after {S} eager ticks: {held} to the eager run; launches {launches}; wall {replay_s:.2f} s replayed, "
-          f"{eager_s:.2f} s eager {tag}")
 
 
 def phase_graphs(tag, dev="cuda"):
@@ -2263,14 +2296,14 @@ def phase_graphs(tag, dev="cuda"):
             p = BENCH.make_params(cfg, BENCH.lateral_pushes(B), device=dev)
             with RC.disable_graphs():
                 w = solver.warm_from(p, solver.solve(p, solver.cold_start(B, device=dev)))
-            graph_check(f"solve {path} B={B}", ("solve", cfg), solver.solve, (p, w), (p, w), tag)
+            graph_check(f"solve {path} B={B}", solver.solve, (p, w), [(("solve", cfg), (p, w))], tag)
     # apps.bench's chain at the bench's configuration and shape
     cfg = ergocub_mpc_config()
     solver = CentroidalMPCSolver(cfg)
     B = GRAPH_SOLVE_B[-1]
     p, w = BENCH.make_params(cfg, BENCH.lateral_pushes(B), device=dev), solver.cold_start(B, device=dev)
-    graph_check(f"bench chain B={B} x KB={BENCH.KB}", ("bench.chain", cfg, BENCH.KB),
-                lambda pp, ww: BENCH.chain(solver, pp, ww, BENCH.KB), (p, w), (p, w), tag)
+    graph_check(f"bench chain B={B} x KB={BENCH.KB}", lambda pp, ww: BENCH.chain(solver, pp, ww, BENCH.KB), (p, w),
+                [(("bench.chain", cfg, BENCH.KB), (p, w))], tag)
 
     # the rigid plant's tick: B = 1 (the settle's), B = 256 with a push
     Bw = GRAPH_WIDE_B
@@ -2286,9 +2319,9 @@ def phase_graphs(tag, dev="cuda"):
     for B in (1, Bw):
         rb, q = items_of(s_r.rb, slice(0, B)), s_r.q[:B]
         ext = None if B == 1 else push[:B] * ctl_r.mass
-        graph_check(f"dynamics_step B={B}" + (" (the settle's)" if B == 1 else " pushed"), owner,
+        graph_check(f"dynamics_step B={B}" + (" (the settle's)" if B == 1 else " pushed"),
                     lambda st, qc, ef: RB.dynamics_step(cfg_r.rigid, model, st, qc, cfg_r.wbc_dt, ext_force_base=ef),
-                    (rb, q, ext), (rb, q, ext), tag)
+                    (rb, q, ext), [(owner, (rb, q, ext))], tag)
 
     # the WBC stage on both plants at B = 1 and 256, after the tick-0 MPC stage
     ctl_k = RL.WalkingController(ergocub_gazebo_v1(mpc=ergocub_mpc_config(kkt_impl="dense", admm_impl="fused")),
@@ -2299,18 +2332,51 @@ def phase_graphs(tag, dev="cuda"):
             inp = RL.TickInput(joy[:B], push[:B] if plant == "rigid" else zeros[:B], zeros[:B])
             with RC.disable_graphs():
                 s = ctl._mpc_stage(items_of(s_all, slice(0, B)), inp)
-            key = (s._replace(plant=s.plant._replace(rng=None)), inp)
-            graph_check(f"_wbc_stage {plant} B={B}", ("wbc_stage", ctl), ctl._wbc_stage, (s, inp), key, tag)
+            graph_check(f"_wbc_stage {plant} B={B}", ctl._wbc_stage, (s, inp),
+                        [(("wbc_stage", ctl), (RL._without_rng(s), inp))], tag)
 
-    # the closed loop at B = 1: an eager MPC period, then one replayed
+    # the generator at B = 1 and 256 (the controller's cast weights, its MANN seed)
+    gen_cfg, w_gen = ctl_k.cfg.gen, ctl_k._weights_as(s_k.x9)
+    owner = ("mann.generate", gen_cfg, RC.Ident(model), RC.Ident(w_gen))
+    for B in (1, Bw):
+        st = items_of(s_k.gen_state, slice(0, B))
+        des = IB.build_desired_trajectory(joy[:B, 0:2], joy[:B, 2:4], ctl_k.cfg.input_builder)
+        graph_check(f"generator B={B}", lambda a, b: G.generate_with_states(gen_cfg, model, w_gen, a, b), (st, des),
+                    [(owner, (st, des))], tag)
+
+    # the MPC stage (pre, its host read, post) and a whole MPC period,
+    # blocked and folded, on both plants at B = 1 and 256, from tick 0
     for plant, ctl, s_all in (("kinematic", ctl_k, s_k), ("rigid", ctl_r, s_r)):
-        loop_check(f"closed loop {plant} B=1", ctl, items_of(s_all, slice(0, 1)),
-                   tick_inputs(joy[:1], 2 * GRAPH_TICKS), tag)
+        k = ctl.cfg.mpc_every
+        for B in (1, Bw):
+            s = items_of(s_all, slice(0, B))
+            s_in = RL._without_rng(s)
+            ext = push[:B] if plant == "rigid" else zeros[:B]
+            inp = RL.TickInput(joy[:B], ext, zeros[:B])
+            with RC.disable_graphs():
+                pre = ctl._mpc_pre(s_in, inp)
+            called = bool(pre.call_now.any())
+            graph_check(f"_mpc_stage {plant} B={B}", ctl._mpc_stage, (s, inp),
+                        [(("mpc_pre", ctl), (s_in, inp)), (("mpc_post", ctl), (s_in, inp, pre, called))], tag)
+            blk = RL.TickInput(*(a[:, None].expand(B, k, a.shape[-1]) for a in inp))
+            z = s.x9[:, 2]
+            acc0 = (z * 0, z * 0, z * 0, torch.ones_like(z, dtype=torch.bool), torch.ones_like(z), z + 10.0, z)
+            graph_check(f"period blocked {plant} B={B}", ctl.run_episode_blocked, (s, blk),
+                        [(("period", ctl), (s_in, blk, None, None))], tag)
+            graph_check(f"period fold {plant} B={B}", lambda a, b: ctl.run_episode_fold(a, b, DS.fold, acc0), (s, blk),
+                        [(("period", ctl), (s_in, blk, DS.fold, acc0))], tag)
+
     print(f"phase 14 took {time.perf_counter() - t_phase:.1f} s")
 
 
 def main():
     require(torch.cuda.is_available(), "no CUDA device: this smoke run needs a GPU")
+    with tempfile.TemporaryDirectory() as tmp, references(tmp) as refs:
+        run(refs)
+
+
+def run(refs):
+    """Phases 1-14 and the two JSON lines; refs: references()' processes."""
     t_start = time.perf_counter()
     card = BENCH.device_name("cuda")
     print(f"card: {card}")
@@ -2590,10 +2656,10 @@ def main():
     l_closed = phase_closed_loop(tag, mann_weights)
 
     # --- 10. the closed loop on the rigid-body plant -------------------------
-    l_rigid = phase_rigid_loop(tag)
+    l_rigid = phase_rigid_loop(tag, refs["settle"])
 
     # --- 11. the push-recovery sweep and the walk through their CLIs ---------
-    l_sweep = phase_sweep(tag)
+    l_sweep = phase_sweep(tag, refs["sweep"])
 
     # --- 12. the remaining entry points ---------------------------------------
     l_rest = phase_remaining(tag, cfg_dense)

@@ -83,6 +83,35 @@ def build_scenarios(
     return ctl.initial_state(batch, dtype=dtype), base._replace(ext_force=push)
 
 
+def fold(acc, tel):
+    """The sweep's per-tick reduction of a scenario's Telemetry [B, ...]
+    into (supp_dev, z_dev, track_err, finite, up_min, bz_min, z0) [B]. At
+    module level, closing over nothing: every chunk and every sweep call
+    keys to one period graph (`run_episode_fold`)."""
+    lat, dz, trk, fin, up, bz, zz0 = acc
+    com = tel.com_mpc
+    # the fall signal is the CoM leaving the support, not world-frame
+    # drift: a push recovered by sidestepping moves the CoM far in the
+    # world while it stays balanced over the stance feet
+    fc = tel.foot_contact
+    w = fc / torch.clamp_min(fc.sum(-1, keepdim=True), 1e-6)
+    supp = (w[..., None] * tel.foot_pos_des).sum(1)
+    rel = torch.linalg.vector_norm(com[:, 0:2] - supp[:, 0:2], dim=-1)
+    # kinematic infeasibility: the commanded robot's FK CoM cannot follow
+    # the centroidal model's
+    track = torch.linalg.vector_norm(com[:, 0:2] - tel.com_meas[:, 0:2], dim=-1)
+    return (
+        torch.maximum(lat, rel),
+        torch.maximum(dz, (com[:, 2] - zz0).abs()),
+        torch.maximum(trk, track),
+        fin & torch.isfinite(com).all(-1) & torch.isfinite(tel.base_act_up),
+        # the physical plant's fall signals (constant on the kinematic plant)
+        torch.minimum(up, tel.base_act_up),
+        torch.minimum(bz, tel.base_act_pos[:, 2]),
+        zz0,
+    )
+
+
 def _episode_metrics(ctl: WalkingController, s0, inputs, chunk: int):
     """Per-scenario survival metrics, each [b], by folding the telemetry of
     blocked episodes (O(1) telemetry memory), `chunk` items at a time:
@@ -91,30 +120,6 @@ def _episode_metrics(ctl: WalkingController, s0, inputs, chunk: int):
     # initial physical base height: the kinematic plant carries no rigid body,
     # and JAX's unsunk one there sits at the commanded base
     zb0 = (s0.base_pos if s0.rb is None else s0.rb.base_pos)[:, 2]
-
-    def fold(acc, tel):
-        lat, dz, trk, fin, up, bz, zz0 = acc
-        com = tel.com_mpc
-        # the fall signal is the CoM leaving the support, not world-frame
-        # drift: a push recovered by sidestepping moves the CoM far in the
-        # world while it stays balanced over the stance feet
-        fc = tel.foot_contact
-        w = fc / torch.clamp_min(fc.sum(-1, keepdim=True), 1e-6)
-        supp = (w[..., None] * tel.foot_pos_des).sum(1)
-        rel = torch.linalg.vector_norm(com[:, 0:2] - supp[:, 0:2], dim=-1)
-        # kinematic infeasibility: the commanded robot's FK CoM cannot follow
-        # the centroidal model's
-        track = torch.linalg.vector_norm(com[:, 0:2] - tel.com_meas[:, 0:2], dim=-1)
-        return (
-            torch.maximum(lat, rel),
-            torch.maximum(dz, (com[:, 2] - zz0).abs()),
-            torch.maximum(trk, track),
-            fin & torch.isfinite(com).all(-1) & torch.isfinite(tel.base_act_up),
-            # the physical plant's fall signals (constant on the kinematic plant)
-            torch.minimum(up, tel.base_act_up),
-            torch.minimum(bz, tel.base_act_pos[:, 2]),
-            zz0,
-        )
 
     def one(s, inp, zz0):
         zeros = torch.zeros_like(zz0)

@@ -20,7 +20,9 @@ pitch the constant walk-ready value (flat-ground walking).
 Every tensor carries a leading batch dimension [B, ...]; the rollout is a
 Python loop over steps, and `generate_with_states` returns the state after
 each step stacked as [B, S, ...] so a caller can re-root the next rollout
-at any knot.
+at any knot. On the card the whole rollout replays one CUDA graph cached
+for the config's value, the model and the weights (`runtime/cache.py`), the
+counterpart of JAX's jitted `lax.scan` over the steps.
 """
 
 from __future__ import annotations
@@ -36,6 +38,7 @@ from cmw_tpu_torch.core import kinematics as kin
 from cmw_tpu_torch.core import lie
 from cmw_tpu_torch.mann.input_builder import DesiredBaseTrajectory, _device_constant
 from cmw_tpu_torch.mann.network import MANNWeights, mann_forward
+from cmw_tpu_torch.runtime import cache
 
 N_PAST = 6  # of the 12 projected_base_datapoints (mann.ini:57)
 N_FUTURE = 6
@@ -113,11 +116,14 @@ def _hist_len(cfg: GeneratorConfig) -> int:
     return N_PAST * cfg.past_stride
 
 
+_NP_FLOAT = {torch.float32: np.float32, torch.float64: np.float64}
+
+
 def _base_rot(cfg: GeneratorConfig, yaw):
     """Full base rotation for FK [B, 3, 3]: yaw (tracked state) composed with
     the constant walk-ready pitch (cfg.base_pitch, its cosine and sine taken
-    of the angle rounded to the dtype)."""
-    p = float(torch.tensor(cfg.base_pitch, dtype=yaw.dtype))
+    of the angle rounded to the dtype on the host, where a graph can run it)."""
+    p = float(_NP_FLOAT[yaw.dtype](cfg.base_pitch))
     cp, sp = math.cos(p), math.sin(p)
     pitch = _device_constant(((cp, 0.0, sp), (0.0, 1.0, 0.0), (-sp, 0.0, cp)), yaw.device, yaw.dtype)
     return lie.rotz(yaw) @ pitch
@@ -340,7 +346,16 @@ def generate_with_states(
     """Like generate(), but also returns the post-step states stacked
     [B, S, ...], so that the next rollout can re-root at an intermediate
     knot: `GeneratorState(*(a[:, k] for a in states))` is the state after
-    step k + 1."""
+    step k + 1. On the card the rollout is one graph, keyed by the config's
+    value and the model's and the weights' identity: the weights are read in
+    place, never copied into the graph's inputs (the controller hands over
+    the same cast weights on every call, `WalkingController._weights_as`)."""
+    owner = ("mann.generate", cfg, cache.Ident(model), cache.Ident(weights))
+    return cache.graphed(owner, lambda st, des: _rollout(cfg, model, weights, st, des), state, desired)
+
+
+def _rollout(cfg: GeneratorConfig, model: kin.RobotModel, weights: MANNWeights, state: GeneratorState,
+             desired: DesiredBaseTrajectory):
     records, states = [], []
     for _ in range(cfg.n_steps):
         state, rec = step(cfg, model, weights, state, desired)

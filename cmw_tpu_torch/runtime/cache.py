@@ -26,7 +26,9 @@ On a miss the call copies its inputs into static buffers (allocated outside
 the graph pool), runs `fn` once on a side stream (the warm-up: lazy
 initialisation, the kernels' nvcc build, cuBLAS handles, the constant caches
 of `core/consts.py`), captures `fn` into a graph whose memory comes from one
-pool shared by the cache, and replays it. On every call the inputs are
+pool shared by the cache, instantiates it and replays it. A key that has run
+eagerly on the card since the last `clear()` (under `disable_graphs()`)
+skips the warm-up: that run did the lazy initialisation. On every call the inputs are
 copied into the static buffers, the graph is replayed, and the outputs that
 leave are cloned: the next replay, of this graph or of another one sharing
 the pool, overwrites the static outputs (callers keep every tick's
@@ -77,6 +79,7 @@ CARD = "cuda"  # the device type whose calls are captured (the CPU tests' fake c
 
 _state = threading.local()  # per thread: `disabled` depth, `inside` a warm-up or capture
 _graphs: dict = {}
+_warm: set = set()  # keys whose fn has run eagerly on the card since the last clear()
 _pool = None
 _done = None  # a CUDA event recorded after the last call's clones
 _lock = threading.Lock()  # held by a card call from its lookup to its clones (captures included)
@@ -105,7 +108,8 @@ class Entry(NamedTuple):
     layout: list  # per output leaf: ("in", i) | ("out", j) | ("static", value)
     out_spec: Any
     launches: tuple  # K3 / K4 / K5 launches of one replay
-    capture_s: float  # warm-up + capture seconds
+    capture_s: float  # warm-up (if any) + capture + instantiation seconds
+    instantiate_s: float  # the instantiation's share of capture_s
 
 
 def _depth(name: str) -> int:
@@ -169,7 +173,7 @@ def _record(graph, fn: Callable, static_args):
         return fn(*static_args)
 
 
-def _capture(fn: Callable, leaves: list, spec, device: torch.device) -> Entry:
+def _capture(fn: Callable, leaves: list, spec, device: torch.device, warm: bool) -> Entry:
     global _pool
     t0 = time.perf_counter()
     tensors = [leaf for leaf in leaves if isinstance(leaf, torch.Tensor)]
@@ -182,17 +186,21 @@ def _capture(fn: Callable, leaves: list, spec, device: torch.device) -> Entry:
     before = read_launches()
     _state.inside = _depth("inside") + 1
     try:
-        side = torch.cuda.Stream(device)
-        side.wait_stream(torch.cuda.current_stream(device))
-        with torch.cuda.stream(side):
-            fn(*static_args)
-        torch.cuda.current_stream(device).wait_stream(side)
+        if not warm:
+            side = torch.cuda.Stream(device)
+            side.wait_stream(torch.cuda.current_stream(device))
+            with torch.cuda.stream(side):
+                fn(*static_args)
+            torch.cuda.current_stream(device).wait_stream(side)
         mid = read_launches()
-        graph = torch.cuda.CUDAGraph()
+        graph = torch.cuda.CUDAGraph(keep_graph=True)  # instantiated below, timed apart from the capture
         out = _record(graph, fn, static_args)
         after = read_launches()
     finally:
         _state.inside -= 1
+    t_inst = time.perf_counter()
+    graph.instantiate()
+    instantiate_s = time.perf_counter() - t_inst
     _add_launches(_delta(before, after))  # the warm-up and the capture ran nothing for the caller
     out_leaves, out_spec = pytree.tree_flatten(out)
     by_id = {id(t): i for i, t in enumerate(inputs)}
@@ -207,11 +215,29 @@ def _capture(fn: Callable, leaves: list, spec, device: torch.device) -> Entry:
                 seen[id(leaf)] = len(outputs)
                 outputs.append(leaf)
             layout.append(("out", seen[id(leaf)]))
-    return Entry(graph, inputs, outputs, layout, out_spec, _delta(after, mid), time.perf_counter() - t0)
+    return Entry(graph, inputs, outputs, layout, out_spec, _delta(after, mid), time.perf_counter() - t0,
+                 instantiate_s)
 
 
 def _key(owner, leaves: list, spec):
     return (owner, spec, tuple(_signature(leaf) for leaf in leaves))
+
+
+def signature(tree):
+    """A pytree's structure with each tensor leaf's shape, dtype and device
+    and each other leaf's value: what it adds to a key."""
+    leaves, spec = pytree.tree_flatten(tree)
+    return spec, tuple(_signature(leaf) for leaf in leaves)
+
+
+def _on_card(tensors: list) -> bool:
+    return graphs_enabled() and any(t.device.type == CARD for t in tensors)
+
+
+def replays(*args) -> bool:
+    """Whether `graphed(owner, fn, *args)` goes through a graph (graphs on
+    in this thread and a tensor on the card) rather than calling fn."""
+    return _on_card([leaf for leaf in pytree.tree_leaves(args) if isinstance(leaf, torch.Tensor)])
 
 
 def key(owner, *args):
@@ -232,9 +258,11 @@ def graphed(owner, fn: Callable, *args):
     global _done
     leaves, spec = pytree.tree_flatten(args)
     tensors = [leaf for leaf in leaves if isinstance(leaf, torch.Tensor)]
-    devices = {t.device for t in tensors}
-    if not graphs_enabled() or all(d.type != CARD for d in devices):
+    if not _on_card(tensors):
+        if _depth("disabled") and not _depth("inside") and any(t.device.type == CARD for t in tensors):
+            _warm.add(_key(owner, leaves, spec))  # an eager run on the card: the lazy initialisation is done
         return fn(*args)  # no graphs off the card (and none without a tensor)
+    devices = {t.device for t in tensors}
     if len(devices) != 1:
         raise ValueError(f"graphed {owner!r}: tensors on {sorted(map(str, devices))}, expected one {CARD} device")
     device = next(iter(devices))
@@ -245,7 +273,7 @@ def graphed(owner, fn: Callable, *args):
             stream.wait_event(_done)
         entry = _graphs.get(k)
         if entry is None:
-            entry = _graphs[k] = _capture(fn, leaves, spec, device)
+            entry = _graphs[k] = _capture(fn, leaves, spec, device, k in _warm)
         else:
             torch._foreach_copy_(entry.inputs, tensors)
         entry.graph.replay()
@@ -268,6 +296,7 @@ def clear() -> None:
         if torch.cuda.is_initialized():
             torch.cuda.synchronize()
         _graphs.clear()
+        _warm.clear()
         _pool = _done = None
         consts.clear()
         if torch.cuda.is_initialized():

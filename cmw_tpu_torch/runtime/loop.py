@@ -34,10 +34,15 @@ integrator, reads the ZMP from the contact forces and adds the touchdown and
 lift gates, the gait rush, the crouch, the chest lean and the rigid-only IK
 rows.
 
-On the card the WBC stage replays the CUDA graph cached for the
-controller's value and the inputs' shapes (`runtime/cache.py`), the scan
-body of JAX's jitted episode (`cmw_tpu/runtime/loop.py:1506`, `:1528`); the
-MPC stage runs eagerly around its solve, which replays the solver's graph.
+On the card the stages replay CUDA graphs cached for the controller's value
+and the inputs' shapes (`runtime/cache.py`), the counterparts of JAX's
+jitted episode (`cmw_tpu/runtime/loop.py:1488-1564`): the WBC stage one
+graph; the MPC stage two, `_mpc_pre` and `_mpc_post`, around its one host
+read (does any item call the generator: post's graph is keyed by that bool,
+JAX's `lax.cond`); and in the blocked and folded episodes each whole MPC
+period one graph (`_period`: the MPC stage with the generator run for the
+whole batch and selected per item, as JAX's vmapped cond selects, then
+mpc_every WBC ticks), reading nothing back inside a period.
 
 The stages run inside `torch.profiler.record_function` spans: `mann`,
 `mpc.solve` (the MPC stage's other work is `mpc.other`), `wbc.plant` (the
@@ -48,6 +53,7 @@ graph has no spans: profile under `runtime.cache.disable_graphs()`.
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import torch
@@ -64,7 +70,7 @@ from cmw_tpu_torch.core.integrators import rk4_step
 from cmw_tpu_torch.core.splines import linear_spline
 from cmw_tpu_torch.estimation import fixed_foot, legged_odom
 from cmw_tpu_torch.mann import generator as G
-from cmw_tpu_torch.mann.input_builder import build_desired_trajectory
+from cmw_tpu_torch.mann.input_builder import DesiredBaseTrajectory, build_desired_trajectory
 from cmw_tpu_torch.mann.network import MANNWeights
 from cmw_tpu_torch.runtime import cache
 from cmw_tpu_torch.runtime.config import WalkingConfig
@@ -184,6 +190,21 @@ class RigidMeasurements(NamedTuple):
     pos_cp: torch.Tensor  # [B, nc, 3] each foot's current phase position
 
 
+class MPCPre(NamedTuple):
+    """What the MPC stage computes before its host read (`_mpc_pre`), for
+    `_mpc_post`."""
+
+    joypad_lp: torch.Tensor  # [B, 4] slewed joystick (the slew state; stand mode keys off it)
+    moving: torch.Tensor  # [B] bool: above the stand threshold
+    hold: torch.Tensor  # [B] gait hold (rigid; zeros on the kinematic plant)
+    hold_time: torch.Tensor  # [B]
+    desired: DesiredBaseTrajectory  # the governed joystick's desired base path
+    gen_state: G.GeneratorState  # after the re-sync (rigid)
+    stored: StoredMann  # after the re-sync (rigid)
+    call_now: torch.Tensor  # [B] bool: the item calls the generator
+    rig: RigidMeasurements | None  # the rigid plant's measurements (None on the kinematic plant)
+
+
 class TickInput(NamedTuple):
     joypad: torch.Tensor  # [B, 4] = [motion_x, motion_y, facing_x, facing_y]
     ext_force: torch.Tensor  # [B, 3] mass-normalised push (measured wrench)
@@ -234,6 +255,26 @@ def _where(cond, a, b):
     if isinstance(a, torch.Tensor):
         return torch.where(cond.reshape(cond.shape + (1,) * (a.dim() - cond.dim())), a, b)
     return type(a)(*(_where(cond, x, y) for x, y in zip(a, b)))
+
+
+def _without_rng(s: LoopState) -> LoopState:
+    """s without the plant's noise generator, which no graph carries (a
+    static leaf would key each episode's graph by its generator)."""
+    return s._replace(plant=s.plant._replace(rng=None))
+
+
+def _with_rng(s: LoopState, rng) -> LoopState:
+    return s._replace(plant=s.plant._replace(rng=rng))
+
+
+@functools.cache
+def _ref_decay(dt: float, ramp: float, n: int, dtype: torch.dtype) -> tuple:
+    """The startup reference offset's decay a MPC tick, exp(-dt / ramp)
+    rounded to the dtype, and its powers over n knots: host values made once
+    (the first call is a graph's warm-up), since a graph can make no tensor
+    from host data."""
+    decay = torch.exp(torch.tensor(-dt / ramp, dtype=dtype))
+    return float(decay), tuple((decay ** torch.arange(n, dtype=dtype)).tolist())
 
 
 def _cast_weights(w: MANNWeights, device, dtype) -> MANNWeights:
@@ -445,10 +486,41 @@ class WalkingController:
 
     # -- MPC + MANN stage (every cfg.mpc_every ticks) ---------------------------
 
+    def _noisy(self) -> bool:
+        """Sensor noise on: the WBC tick draws from the plant's generator in
+        place, which a graph captured on one episode's generator cannot do
+        for another's, so the tick (and a period holding it) runs eagerly."""
+        pcfg = self.cfg.plant
+        return pcfg.encoder_noise > 0.0 or pcfg.velocity_noise > 0.0 or pcfg.wrench_noise > 0.0
+
     def _mpc_stage(self, s: LoopState, inp: TickInput) -> LoopState:
-        cfg, model = self.cfg, self.model
-        mpc = cfg.mpc
-        dtype, dev = s.x9.dtype, s.x9.device
+        """The MPC stage: `_mpc_pre`, one read of the card (does any item
+        call the generator), then `_mpc_post` with the generator run only if
+        one does: JAX's unbatched `lax.cond` (cmw_tpu/runtime/loop.py:822).
+        On the card each half replays its graph, post's keyed by the bool."""
+        s_in = _without_rng(s)
+        pre = cache.graphed(("mpc_pre", self), self._mpc_pre, s_in, inp)
+        called = bool(pre.call_now.any())  # the MPC stage's one read from the card
+        # the stage writes no plant: the caller's comes back, noise generator and all
+        return cache.graphed(("mpc_post", self), self._mpc_post, s_in, inp, pre, called)._replace(plant=s.plant)
+
+    def warm_mpc_stage(self, s: LoopState, inp: TickInput) -> None:
+        """On the card, capture the MPC stage's graphs for these shapes,
+        post's with the generator called and without (the latter first comes
+        with a stage whose items all skip the call), so that a real-time
+        caller never captures while its clocks run. Off the card, nothing."""
+        s_in = _without_rng(s)
+        if cache.replays(s_in, inp):
+            pre = cache.graphed(("mpc_pre", self), self._mpc_pre, s_in, inp)
+            for called in (True, False):
+                cache.graphed(("mpc_post", self), self._mpc_post, s_in, inp, pre, called)
+
+    def _mpc_pre(self, s: LoopState, inp: TickInput) -> MPCPre:
+        """The MPC stage up to its host read: the joystick slew, the rigid
+        plant's measurements, gait hold and speed governors, the desired
+        base trajectory, the generator re-sync, and which items call the
+        generator."""
+        cfg, mpc = self.cfg, self.cfg.mpc
         with record_function("mpc.other"):
             # 0. joystick slew limit; facing passes through (slew 0 disables)
             dmax = (s.dyn.joypad_slew * mpc.dt)[:, None]
@@ -457,9 +529,9 @@ class WalkingController:
             motion = torch.where(s.dyn.joypad_slew[:, None] > 0, motion, inp.joypad[:, 0:2])
             joypad = torch.cat([motion, inp.joypad[:, 2:4]], dim=-1)
             # the slew state and stand mode key off the pre-governor command
-            joypad_pre_gov = joypad
+            joypad_lp = joypad
             moving = torch.linalg.vector_norm(joypad[:, 0:2], dim=-1) > cfg.stand_threshold
-            hold, hold_time = torch.zeros_like(s.hold), s.hold_time
+            hold, hold_time, rig = torch.zeros_like(s.hold), s.hold_time, None
             if cfg.rigid is not None:
                 # 0b. the rigid plant's measurements, gait hold and speed governors
                 rig = self._rigid_measurements(s)
@@ -472,21 +544,32 @@ class WalkingController:
             if cfg.rigid is not None and cfg.gen_resync:
                 gen_state, stored = self._resync_generator(s, gen_state, stored)
 
-            # the adapters' input knots are slow_down_factor * gen dt apart in real time
-            slow = cfg.gen.slow_down_factor
-            gen_times = (torch.arange(cfg.gen.n_steps, dtype=dtype, device=dev) + 1.0) * (cfg.gen.dt * slow)
-            knot_times = torch.arange(mpc.N, dtype=dtype, device=dev) * mpc.dt
-
             # 2. the generator advances when mannCallingTime of gait time has
             # passed since its last call (half a WBC tick of slack for the f32
-            # clock), re-rooted mann_advance knots in; it runs for the whole
-            # batch when any item calls, and each item keeps what it chose
+            # clock), re-rooted mann_advance knots in
             call_now = (s.t - stored.t0 >= cfg.mann_calling_time - 0.5 * cfg.wbc_dt) | (s.tick == 0)
-            calls = call_now.cpu()  # the MPC tick's one read from the card
+            return MPCPre(joypad_lp, moving, hold, hold_time, desired, gen_state, stored, call_now, rig)
+
+    def _mpc_post(self, s: LoopState, inp: TickInput, pre: MPCPre, called: bool) -> LoopState:
+        """The MPC stage after its host read. With `called` the generator
+        runs for the whole batch and each item keeps what it chose by
+        pre.call_now (bitwise what a call for some items computes, and JAX's
+        vmapped cond, a select); without it no item calls. Then the
+        frequency adapters, merge and snap, stand mode, the rigid plan edits,
+        the solve and the write-back."""
+        cfg, model = self.cfg, self.model
+        mpc = cfg.mpc
+        dtype, dev = s.x9.dtype, s.x9.device
+        gen_state, stored, moving, hold = pre.gen_state, pre.stored, pre.moving, pre.hold
+        # the adapters' input knots are slow_down_factor * gen dt apart in real time
+        slow = cfg.gen.slow_down_factor
+        gen_times = (torch.arange(cfg.gen.n_steps, dtype=dtype, device=dev) + 1.0) * (cfg.gen.dt * slow)
+        knot_times = torch.arange(mpc.N, dtype=dtype, device=dev) * mpc.dt
         gen_next = gen_state
-        if bool(calls.any()):
+        if called:
             with record_function("mann"):
-                _, outs, states = G.generate_with_states(cfg.gen, model, self._weights_as(s.x9), gen_state, desired)
+                _, outs, states = G.generate_with_states(cfg.gen, model, self._weights_as(s.x9), gen_state,
+                                                         pre.desired)
                 called_next = G.GeneratorState(*(a[:, cfg.mann_advance - 1] for a in states))
                 # the contact timeline, prepended with the current state so that
                 # the ongoing stance phase covers t, as a plan at absolute times
@@ -496,10 +579,10 @@ class WalkingController:
                 foot_pos = torch.cat([pose_tl[..., 0:2], torch.zeros_like(pose_tl[..., 0:1])], dim=-1)
                 mann_plan = C.plan_from_timeline(flags, tl_times, foot_pos, lie.rotz(pose_tl[..., 2]),
                                                  P=cfg.plan_phases)
-                called = StoredMann(t0=s.t, com=outs.com, ang_mom=outs.ang_mom, joints0=outs.joints[:, 0],
-                                    yaw0=outs.base_xy_yaw[:, 0, 2], plan=mann_plan)
-                gen_next = _where(call_now, called_next, gen_state)
-                stored = _where(call_now, called, stored)
+                fresh = StoredMann(t0=s.t, com=outs.com, ang_mom=outs.ang_mom, joints0=outs.joints[:, 0],
+                                   yaw0=outs.base_xy_yaw[:, 0, 2], plan=mann_plan)
+                gen_next = _where(pre.call_now, called_next, gen_state)
+                stored = _where(pre.call_now, fresh, stored)
 
         with record_function("mpc.other"):
             # 3. frequency adapters: the stored rollout at the MPC knots' absolute times
@@ -508,9 +591,9 @@ class WalkingController:
             com_ref = torch.cat([com_ref[..., 0:2], s.com_z_ref[:, None, None].expand(-1, mpc.N, 1)], dim=-1)
             if cfg.ref_ramp > 0.0:
                 # startup shaping: decay the initial reference mismatch
-                decay = torch.exp(torch.tensor(-mpc.dt / cfg.ref_ramp, dtype=dtype))
+                decay, powers = _ref_decay(mpc.dt, cfg.ref_ramp, mpc.N, dtype)
                 ref_off = torch.where((s.tick == 0)[:, None], s.x9[:, 0:3] - com_ref[:, 0], s.ref_off * decay)
-                kdec = constant_like(tuple((decay ** torch.arange(mpc.N, dtype=dtype)).tolist()), s.x9)
+                kdec = constant_like(powers, s.x9)
                 com_ref = com_ref + ref_off[:, None, :] * kdec[:, None]
             else:
                 ref_off = s.ref_off
@@ -539,10 +622,10 @@ class WalkingController:
                 # swing, the landing and the MPC's force schedule retime together
                 held = hold > 0
                 gen_next = _where(held, gen_state, gen_next)
-                plan = _where(held, rig.prev_plan, plan)
+                plan = _where(held, pre.rig.prev_plan, plan)
                 if cfg.reconcile_contacts:
-                    plan = self._reconcile_contacts(s, rig, plan, hold)
-                plan = self._capture_step(s, rig, plan)
+                    plan = self._reconcile_contacts(s, pre.rig, plan, hold)
+                plan = self._capture_step(s, pre.rig, plan)
 
             # 6. solve from the integrated state, with the measured wrench
             # deadbanded as the WBC does (WholeBodyQPBlock.cpp:1018-1021)
@@ -572,8 +655,8 @@ class WalkingController:
                 warm=warm, plan=plan, forces0=sol.forces[:, 0], corner0=corner_k[:, 0],
                 active0=stage.active[..., 0], zmp_des=zmp_des, gen_state=gen_next, q_reg=q_reg,
                 chest_yaw=chest_yaw, mpc_cost=sol.cost, mpc_prim=sol.prim_res, ref_off=ref_off,
-                com_mann=com_ref[:, 0], ang_mom_mann=L_ref[:, 0], hold=hold, hold_time=hold_time,
-                joypad_lp=joypad_pre_gov, mann=stored,
+                com_mann=com_ref[:, 0], ang_mom_mann=L_ref[:, 0], hold=hold, hold_time=pre.hold_time,
+                joypad_lp=pre.joypad_lp, mann=stored,
             )
 
     # -- the rigid plant's MPC-stage branches -----------------------------------
@@ -743,16 +826,12 @@ class WalkingController:
     def _wbc_stage(self, s: LoopState, inp: TickInput) -> tuple[LoopState, Telemetry]:
         """One WBC tick. On the card it replays the graph cached for this
         controller's value and the inputs' shapes; the plant's noise
-        generator stays out of the graph. With sensor noise on, the tick
-        draws from that generator in place, which a graph captured on one
-        episode's generator cannot do for another's: it then runs eagerly."""
-        pcfg = self.cfg.plant
-        if pcfg.encoder_noise > 0.0 or pcfg.velocity_noise > 0.0 or pcfg.wrench_noise > 0.0:
+        generator stays out of the graph. With sensor noise on it runs
+        eagerly (`_noisy`)."""
+        if self._noisy():
             return self._wbc_stage_eager(s, inp)
-        rng = s.plant.rng
-        s2, tel = cache.graphed(("wbc_stage", self), self._wbc_stage_eager,
-                                s._replace(plant=s.plant._replace(rng=None)), inp)
-        return s2._replace(plant=s2.plant._replace(rng=rng)), tel
+        s2, tel = cache.graphed(("wbc_stage", self), self._wbc_stage_eager, _without_rng(s), inp)
+        return _with_rng(s2, s.plant.rng), tel
 
     def _wbc_stage_eager(self, s: LoopState, inp: TickInput) -> tuple[LoopState, Telemetry]:
         cfg, model = self.cfg, self.model
@@ -1024,26 +1103,79 @@ class WalkingController:
             raise ValueError(f"episode length {S} must be a multiple of {k}")
         return tick
 
+    def _period(self, s: LoopState, blk: TickInput, fold=None, acc=None):
+        """One MPC period from an MPC tick, blk [B, mpc_every, ...]: the MPC
+        stage on the block's first input with the generator run for the
+        whole batch (`_mpc_post(called=True)`: each item keeps its choice by
+        call_now, bitwise the stage's result whenever an item calls, and what
+        JAX's vmapped cond selects), then mpc_every eager-body WBC ticks.
+        Returns (state, Telemetry [B, mpc_every, ...]) or, with fold, (state,
+        the accumulator folded over the ticks). Reads nothing back."""
+        first = TickInput(*(a[:, 0] for a in blk))
+        s = self._mpc_post(s, first, self._mpc_pre(s, first), True)
+        tels = []
+        for k in range(blk.joypad.shape[1]):
+            s, tel = self._wbc_stage_eager(s, TickInput(*(a[:, k] for a in blk)))
+            if fold is None:
+                tels.append(tel)
+            else:
+                acc = fold(acc, tel)
+        if fold is None:
+            return s, Telemetry(*(torch.stack(parts, dim=1) for parts in zip(*tels)))
+        return s, acc
+
+    def _periods(self, s0: LoopState, inputs: TickInput, fold=None, acc=None):
+        """The blocked episode's loop: `_period` on each whole MPC period of
+        inputs, one replayed graph a period on the card, keyed by the
+        controller and the fold, as JAX scans the period body
+        (cmw_tpu/runtime/loop.py:1508-1564). Returns (final state, the
+        periods' Telemetry [B, S, ...] or the accumulator)."""
+        k = self.cfg.mpc_every
+        card = cache.replays(s0)
+        s, tels = _without_rng(s0), []
+        for j in range(0, inputs.joypad.shape[1], k):
+            blk = TickInput(*(a[:, j:j + k] for a in inputs))
+            s, out = cache.graphed(("period", self), self._period, s, blk, fold, acc)
+            if fold is None:
+                tels.append(out)
+                continue
+            if card and cache.signature(out) != cache.signature(acc):
+                raise ValueError(f"run_episode_fold on the card: the fold {fold!r} changed its accumulator's "
+                                 "structure, shapes or dtypes; as a scan carry, it must keep them")
+            acc = out
+        s = _with_rng(s, s0.plant.rng)
+        return (s, acc) if fold is not None else (s, Telemetry(*(torch.cat(p, dim=1) for p in zip(*tels))))
+
     def run_episode_blocked(self, s0: LoopState, inputs: TickInput):
         """run_episode over whole MPC periods from an MPC tick (the batched
-        sweep's episode): each period one `_mpc_stage` on its first input,
-        then mpc_every `_wbc_stage`s. The same (final state, Telemetry
-        [B, S, ...])."""
+        sweep's episode): each period one MPC stage on its first input, then
+        mpc_every WBC stages (`_periods`). The same (final state, Telemetry
+        [B, S, ...]). With sensor noise on the WBC ticks, and so the periods,
+        run eagerly (`_noisy`): tick by tick through `step`."""
         self._blocked_tick(s0, inputs)
-        return self.run_episode(s0, inputs)
+        if self._noisy():
+            return self.run_episode(s0, inputs)
+        return self._periods(s0, inputs)
 
     def run_episode_fold(self, s0: LoopState, inputs: TickInput, fold, acc0):
         """The blocked episode folding each tick's batched Telemetry [B, ...]
         into an accumulator, acc = fold(acc, tel), in place of stacking it:
-        memory O(1) in the episode length. Returns (final state, acc)."""
+        memory O(1) in the episode length. Returns (final state, acc). On the
+        card the period graph is keyed by the fold, so a fold must keep its
+        accumulator's structure, shapes and dtypes, as JAX's scan carry does
+        (ValueError otherwise; the CPU runs it as it is), and a module-level
+        fold keys every call to one graph. With sensor noise on, tick by
+        tick, eagerly."""
+        tick = self._blocked_tick(s0, inputs)
+        if not self._noisy():
+            return self._periods(s0, inputs, fold, acc0)
         acc = acc0
 
         def on_tick(tel):
             nonlocal acc
             acc = fold(acc, tel)
 
-        s = self._episode(s0, inputs, self._blocked_tick(s0, inputs), on_tick)
-        return s, acc
+        return self._episode(s0, inputs, tick, on_tick), acc
 
 
 def constant_inputs(S: int, joypad=(0.0, 0.0, 1.0, 0.0), dtype=torch.float32, *, batch: int = 1,

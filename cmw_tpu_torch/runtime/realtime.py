@@ -10,8 +10,10 @@ per-task deadline telemetry. A joypad source (`apps/joypad.py`, the
 cmw-FakeJoypad analog) feeds the direction commands through a mailbox.
 
 The walker drives one robot: the controller's state at B = 1, each tick's
-`TickInput` [1, ...] built from the mailbox. The stages run eagerly on the
-controller's device; each task waits for its results by reading them back.
+`TickInput` [1, ...] built from the mailbox. On the card the stages replay
+their graphs (`runtime/cache.py`: the WBC stage's, and the MPC stage's two
+around its one host read), one thread at a time; each task waits for its
+results by reading them back.
 Logical time stays tick-driven; the virtual clock's time scale plays the
 role of the reference's Gazebo real_time_factor. A task slower than its
 period shows as deadline misses in the stats, not as a failure.
@@ -139,9 +141,12 @@ class RealtimeWalker:
     def warmup(self):
         """Run both stages once before the clocks start (the reference's y/n
         start gate, Main.cpp:118-128): the first calls build and load what
-        the stages need. The MPC stage's result is kept, the WBC stage's
-        dropped."""
+        the stages need and capture their graphs, the MPC stage's both
+        (with and without a generator call: the MPC task's ticks drift
+        against the WBC's, so either may come). The MPC stage's result is
+        kept, the WBC stage's dropped."""
         inp = self._tick_input()
+        self.ctl.warm_mpc_stage(self.state, inp)
         s2 = self.ctl._mpc_stage(self.state, inp)
         self.state = self.state._replace(**{f: getattr(s2, f) for f in MPC_FIELDS})
         s3, _ = self.ctl._wbc_stage(self.state, inp)

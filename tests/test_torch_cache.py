@@ -17,11 +17,19 @@ replay without Python's side effects (the launch counters). Checked:
   - the launch bookkeeping: a graph records the launches of its capture
     and adds them on every call, the warm-up's and the capture's taken back;
     a nested graphed call inside a capture becomes part of the outer graph;
-  - a capture that fails raises and leaves no entry;
+  - a capture that fails raises and leaves no entry; a key run eagerly
+    on the card first is captured without a warm-up;
   - two threads replaying two graphs whose static outputs share memory, as
     graphs sharing the pool may, each get their own graph's result (a
     replay releases the GIL; the cache's lock runs from copy-in to clones);
-  - `clear()` drops every graph and the pool."""
+  - `clear()` drops every graph and the pool;
+  - the MPC stage at the default cadence (a generator call every stage)
+    holds exactly two graphs, `_mpc_pre`'s and `_mpc_post`'s with the
+    generator called; `_mpc_post` without the call only comes with a slowed
+    gait (a call every 5th stage), or from `warm_mpc_stage`;
+  - a period graph's replays (`run_episode_blocked`, `run_episode_fold`
+    with the sweep's fold) equal the eager episode tick by tick, bitwise;
+  - a fold that changes its accumulator's structure raises on the card."""
 
 import contextlib
 import threading
@@ -35,8 +43,11 @@ from cmw_tpu_torch.apps import bench as BENCH
 from cmw_tpu_torch.cmpc import CentroidalMPCSolver, ergocub_mpc_config
 from cmw_tpu_torch.cmpc.formulation import no_adjust
 from cmw_tpu_torch.core import kinematics as TK
+from cmw_tpu_torch.dist import sweep as TS
+from cmw_tpu_torch.mann.generator import GeneratorConfig
 from cmw_tpu_torch.ops import admm_fused, spd_inverse, symv
 from cmw_tpu_torch.runtime import cache
+from cmw_tpu_torch.runtime import loop as TL
 from cmw_tpu_torch.runtime.config import ergocub_gazebo_v1
 from cmw_tpu_torch.runtime.loop import WalkingController
 
@@ -61,8 +72,11 @@ class FakeGraph:
     results written into the static outputs, the launch counters untouched
     (a replay runs no Python)."""
 
-    def __init__(self):
+    def __init__(self, keep_graph=False):
         self.fn = self.args = self.out = None
+
+    def instantiate(self):
+        pass
 
     def replay(self):
         counts = cache.read_launches()
@@ -86,6 +100,7 @@ def card(monkeypatch):
     """The fake card, with an empty cache."""
     monkeypatch.setattr(cache, "CARD", "cpu")
     monkeypatch.setattr(cache, "_graphs", {})
+    monkeypatch.setattr(cache, "_warm", set())
     monkeypatch.setattr(cache, "_pool", None)
     monkeypatch.setattr(cache, "_record", fake_record)
     monkeypatch.setattr(torch.cuda, "device", lambda d: contextlib.nullcontext())
@@ -187,6 +202,27 @@ def test_launch_bookkeeping(card):
     assert cache.lookup(("outer",), x).launches == (1, 1, 2) and cache.lookup(("inner",), x) is None
 
 
+def test_eager_run_skips_the_warm_up(card):
+    """A key run eagerly on the card is captured without a warm-up; clear()
+    forgets it (the constants it filled go with the graphs)."""
+    calls = []
+
+    def counted(x):
+        calls.append(1)
+        return x + 1.0
+
+    x = torch.zeros(2)
+    cache.graphed(("cold",), counted, x)
+    assert len(calls) == 3  # warm-up, capture, replay
+    with cache.disable_graphs():
+        cache.graphed(("warm",), counted, x)
+    cache.graphed(("warm",), counted, x)
+    assert len(calls) == 3 + 1 + 2  # the eager run; then capture and replay
+    cache.clear()
+    cache.graphed(("warm",), counted, x)
+    assert len(calls) == 6 + 3
+
+
 def test_capture_failure_raises(card, monkeypatch):
     def broken(graph, fn, static_args):
         raise RuntimeError("operation not permitted when stream is capturing")
@@ -249,3 +285,90 @@ def test_clear(card):
     assert not card() and cache._pool is None and cache._done is None
     out, _ = cache.graphed(("double",), double, x + 1.0, x)
     assert torch.equal(out, torch.full((3,), 2.0)) and len(card()) == 1
+
+
+def controller(**kw):
+    """A kinematic-plant controller on the CPU at the short horizon, the
+    synthetic weights."""
+    weights = convert.mann_weights_from_numpy(chip_smoke.synthetic_mann_numpy(), device="cpu")
+    cfg = ergocub_gazebo_v1(mpc=ergocub_mpc_config(horizon=0.6), **kw)
+    return WalkingController(cfg, TK.ergocub_approx(), weights, device="cpu")
+
+
+def stage_graphs(ctl, s, inp):
+    """{"pre", "post[True]", "post[False]"}: which of the MPC stage's graphs the cache holds."""
+    s = TL._without_rng(s)
+    pre = ctl._mpc_pre(s, inp)
+    found = {"pre"} if cache.lookup(("mpc_pre", ctl), s, inp) else set()
+    return found | {f"post[{c}]" for c in (True, False) if cache.lookup(("mpc_post", ctl), s, inp, pre, c)}
+
+
+@pytest.mark.parametrize("slow", [1.0, 2.5], ids=["default", "slowed"])
+def test_mpc_stage_graphs(card, slow):
+    """Two MPC stages a period apart: at the default cadence both call the
+    generator, and the cache holds the pre graph and post[True] only; with
+    the gait slowed 2.5x (mannCallingTime 300 ms, a call every 5th stage)
+    the second stage does not call, and post[False] comes."""
+    ctl = controller(gen=GeneratorConfig(slow_down_factor=slow))
+    B = 2
+    inp = TL.TickInput(*(a[:, 0] for a in TL.constant_inputs(1, (0.3, 0.0, 1.0, 0.0), batch=B, device="cpu")))
+    s = ctl.initial_state(B)
+    s1 = ctl._mpc_stage(s, inp)
+    s2 = ctl._mpc_stage(chip_smoke.coast(ctl, s1), inp)
+    assert torch.equal(s2.mann.t0, s1.mann.t0) == (slow != 1.0)  # the second stage called the generator or not
+    want = {"pre", "post[True]"} | ({"post[False]"} if slow != 1.0 else set())
+    assert stage_graphs(ctl, s, inp) == want and len(card()) == len(want)
+
+
+def test_warm_mpc_stage(card):
+    """The real-time walker's warm-up: both of post's graphs before any
+    stage that skips the generator."""
+    ctl = controller()
+    B = 1
+    inp = TL.TickInput(*(a[:, 0] for a in TL.constant_inputs(1, batch=B, device="cpu")))
+    s = ctl.initial_state(B)
+    ctl.warm_mpc_stage(s, inp)
+    assert stage_graphs(ctl, s, inp) == {"pre", "post[True]", "post[False]"} and len(card()) == 3
+
+
+def assert_trees_equal(a, b):
+    for x, y in zip(torch.utils._pytree.tree_leaves(a), torch.utils._pytree.tree_leaves(b)):
+        assert not isinstance(x, torch.Tensor) or torch.equal(x, y)
+
+
+def test_period_replay_equals_eager(card):
+    """Two MPC periods (mpc_every 5 at wbc_dt 12 ms), the second a replay of
+    the period graph, against run_episode eagerly tick by tick: the blocked
+    episode's state and telemetry, and the folded accumulator, bitwise. The
+    gait is slowed 2.5x, so the second stage calls no generator eagerly,
+    where the period runs it and every item keeps its stored rollout."""
+    ctl = controller(wbc_dt=0.012, gen=GeneratorConfig(slow_down_factor=2.5))
+    B = 2
+    s0 = ctl.initial_state(B)
+    inputs = TL.constant_inputs(2 * ctl.cfg.mpc_every, (0.3, 0.0, 1.0, 0.0), batch=B, device="cpu")
+    with cache.disable_graphs():
+        s_e, tel_e = ctl.run_episode(s0, inputs)
+    z = s0.x9[:, 2]
+    acc0 = (z * 0, z * 0, z * 0, torch.ones_like(z, dtype=torch.bool), torch.ones_like(z), z + 10.0, z)
+    acc_e = acc0
+    for k in range(inputs.joypad.shape[1]):
+        acc_e = TS.fold(acc_e, TL.Telemetry(*(a[:, k] for a in tel_e)))
+    s_b, tel_b = ctl.run_episode_blocked(s0, inputs)
+    assert len(card()) == 1  # one period graph, replayed for the second period
+    s_f, acc_f = ctl.run_episode_fold(s0, inputs, TS.fold, acc0)
+    assert len(card()) == 2  # the fold keys its own
+    assert torch.equal(s_e.mann.t0, torch.zeros(B, dtype=s_e.t.dtype))  # the one call, at tick 0
+    assert_trees_equal((s_b, tel_b), (s_e, tel_e))
+    assert_trees_equal((s_f, acc_f), (s_e, acc_e))
+
+
+def test_fold_keeps_its_structure(card):
+    """A fold whose accumulator grows by a tensor a tick: ValueError on the card."""
+    ctl = controller(wbc_dt=0.012)
+    inputs = TL.constant_inputs(ctl.cfg.mpc_every, batch=1, device="cpu")
+
+    def grow(acc, tel):
+        return acc + (tel.com_mpc,)
+
+    with pytest.raises(ValueError, match="structure"):
+        ctl.run_episode_fold(ctl.initial_state(1), inputs, grow, ())

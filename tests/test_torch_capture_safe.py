@@ -7,10 +7,13 @@ call, which fills the constant caches as the cache's warm-up does, a second
 call of each graphed function runs with `torch.tensor` / `torch.as_tensor`
 on non-tensor data, and `Tensor.item`, `.cpu`, `.tolist`, `.numpy` and the
 conversions to bool, int and float, made to raise: the solve on the Riccati,
-dense and fused paths, the rigid plant's `dynamics_step` and the WBC stage
-on both plants, at T = 20 and B = 2. Syncs inside library calls (a status
-check on the card) are not visible here; phase 14 of chip_smoke.py captures
-each function on the card."""
+dense and fused paths, the rigid plant's `dynamics_step`, the WBC stage,
+the MPC stage's two halves (`_mpc_pre`, `_mpc_post` with the generator
+called and not) and one MPC period through `run_episode_blocked` and
+`run_episode_fold` on both plants, and the generator's rollout
+(`generate_with_states`), at T = 20 and B = 2. Syncs inside library calls
+(a status check on the card) are not visible here; phase 14 of
+chip_smoke.py captures each function on the card."""
 
 import contextlib
 
@@ -22,6 +25,9 @@ from cmw_tpu_torch import convert
 from cmw_tpu_torch.apps import bench as BENCH
 from cmw_tpu_torch.cmpc import CentroidalMPCSolver, ergocub_mpc_config
 from cmw_tpu_torch.core import kinematics as TK
+from cmw_tpu_torch.dist import sweep as TS
+from cmw_tpu_torch.mann import generator as G
+from cmw_tpu_torch.mann.input_builder import build_desired_trajectory
 from cmw_tpu_torch.runtime import loop
 from cmw_tpu_torch.runtime.config import ergocub_gazebo_v1
 from cmw_tpu_torch.sim import rigid_body as RB
@@ -81,24 +87,65 @@ def test_solve(path):
 
 @pytest.fixture(scope="module")
 def ticks():
-    """Per plant: the controller, its state after the tick-0 MPC stage, and the tick's input."""
+    """Per plant: the controller, its state after the tick-0 MPC stage, the
+    tick's input, and the initial state (at the tick-0 MPC stage)."""
     weights = convert.mann_weights_from_numpy(chip_smoke.synthetic_mann_numpy(), device="cpu")
     model = TK.ergocub_approx()
     inp = loop.TickInput(*(a[:, 0] for a in loop.constant_inputs(1, batch=B, device="cpu")))
     out = {}
     for plant, rigid in (("kinematic", None), ("rigid", RB.RigidBodyConfig())):
         ctl = loop.WalkingController(ergocub_gazebo_v1(rigid=rigid, rigid_settle_s=0.01), model, weights, device="cpu")
-        out[plant] = ctl, ctl._mpc_stage(ctl.initial_state(B), inp), inp
+        s0 = ctl.initial_state(B)
+        out[plant] = ctl, ctl._mpc_stage(s0, inp), inp, s0
     return out
 
 
 def test_dynamics_step(ticks):
-    ctl, s, inp = ticks["rigid"]
+    ctl, s, inp, _ = ticks["rigid"]
     twice(lambda: RB.dynamics_step(ctl.cfg.rigid, ctl.model, s.rb, s.q, ctl.cfg.wbc_dt,
                                    ext_force_base=inp.ext_force * ctl.mass))
 
 
 @pytest.mark.parametrize("plant", ["kinematic", "rigid"])
 def test_wbc_stage(ticks, plant):
-    ctl, s, inp = ticks[plant]
+    ctl, s, inp, _ = ticks[plant]
     twice(lambda: ctl._wbc_stage(s, inp))
+
+
+def test_generate_with_states(ticks):
+    ctl, s, inp, _ = ticks["kinematic"]
+    desired = build_desired_trajectory(inp.joypad[:, 0:2], inp.joypad[:, 2:4], ctl.cfg.input_builder)
+    twice(lambda: G.generate_with_states(ctl.cfg.gen, ctl.model, ctl._weights_as(s.x9), s.gen_state, desired))
+
+
+@pytest.mark.parametrize("plant", ["kinematic", "rigid"])
+def test_mpc_pre(ticks, plant):
+    ctl, _, inp, s0 = ticks[plant]
+    twice(lambda: ctl._mpc_pre(s0, inp))
+
+
+@pytest.mark.parametrize("called", [True, False])
+@pytest.mark.parametrize("plant", ["kinematic", "rigid"])
+def test_mpc_post(ticks, plant, called):
+    ctl, _, inp, s0 = ticks[plant]
+    pre = ctl._mpc_pre(s0, inp)
+    twice(lambda: ctl._mpc_post(s0, inp, pre, called))
+
+
+@pytest.mark.parametrize("entry", ["blocked", "fold"])
+@pytest.mark.parametrize("plant", ["kinematic", "rigid"])
+def test_period(ticks, plant, entry, monkeypatch):
+    """One MPC period; the episode's precondition check reads s0's tick
+    once before any period, so the guarded call is handed it."""
+    ctl, _, _, s0 = ticks[plant]
+    inputs = loop.constant_inputs(ctl.cfg.mpc_every, (0.3, 0.0, 1.0, 0.0), batch=B, device="cpu")
+    if entry == "blocked":
+        run = lambda: ctl.run_episode_blocked(s0, inputs)  # noqa: E731
+    else:
+        z = s0.x9[:, 2]
+        acc0 = (z * 0, z * 0, z * 0, torch.ones_like(z, dtype=torch.bool), torch.ones_like(z), z + 10.0, z)
+        run = lambda: ctl.run_episode_fold(s0, inputs, TS.fold, acc0)  # noqa: E731
+    run()
+    monkeypatch.setattr(ctl, "_blocked_tick", lambda s, i: 0)
+    with no_host_data():
+        run()
