@@ -1,0 +1,7 @@
+"""mpc_tick_device_ms: device time of the operations that ran inside the
+benchmark's range around each MPC tick of the traced sub-window, the mean a
+tick."""
+
+
+def read(trace):
+    return trace.get("mpc_tick_device_ms")
