@@ -161,8 +161,9 @@ On the card the solve, the bench chain, `dynamics_step`, the generator, the
 WBC stage, the MPC stage's two halves and the blocked episodes' MPC periods
 replay cached CUDA graphs wherever phases 1-13 call them (the rigid settle,
 the episodes, the sweep, the CLIs, the walker); the timed ticks and stages
-of phases 7-10 and every span profile run under `disable_graphs()` (a
-replay has no spans), as they ran before the graphs, beside phase 8's
+of phases 7-10 and every span profile run under `disable_graphs()` (each
+kernel launched inside its span, with the program's tracing on for the
+profiles), as they ran before the graphs, beside phase 8's
 replayed generator and MPC stage, and so do phase 12's one-shot solves
 (the parity CLI's, the bf16 envelope's). A capture or replay failure
 raises.
@@ -212,6 +213,7 @@ from cmw_tpu_torch.runtime import cache as RC
 from cmw_tpu_torch.runtime import checkpoint
 from cmw_tpu_torch.runtime import loop as RL
 from cmw_tpu_torch.runtime import telemetry as RT
+from cmw_tpu_torch.runtime import trace
 from cmw_tpu_torch.runtime.config import ergocub_gazebo_v1
 from cmw_tpu_torch.sim import rigid_body as RB
 
@@ -954,7 +956,8 @@ CLOSED_TOL_DEFAULT = 1e-4
 FLAG_CHANNELS = ("foot_contact", "fixed_foot_idx")  # identical on every tick
 COM_TRACK_TOL = 0.09  # max |com_meas - com_mpc|_xy, the closed-loop bound of tests/test_runtime.py:40
 PRIM_TOL = 1e-2
-SPANS = ("mann", "mpc.solve", "mpc.other", "wbc.plant", "wbc.estimation", "wbc.ik", "wbc.other")  # runtime/loop.py
+# runtime/loop.py's spans; each parent's row is its self time: what the named stages leave out
+SPANS = ("mann", "mpc.solve", "loop.mpc_stage", "wbc.plant", "wbc.estimation", "wbc.ik", "loop.wbc_stage")
 
 
 def tick_inputs(joy, S):
@@ -1037,23 +1040,32 @@ def mpc_period(ctl, s, inputs, tick0):
 
 
 def span_profile(fn):
-    """One torch.profiler pass over one call of `fn` (controller stages):
-    {span: [device ms, kernels, host ms]}: the device time and count of the
-    kernels, copies and fills launched while each span of runtime/loop.py was
-    open (by the launch's time on the host, so that the work of the autograd
-    engine's own thread, the rigid plant's backward passes, counts in the
-    span that waits for it), the span's host time under the profiler, and
-    (device ms, kernels) of the whole pass; or None where the fenced pass did
-    not keep the whole call (one pass only: a kinematic MPC period takes
-    ~15 s under the profiler)."""
+    """One torch.profiler pass over one call of `fn` (controller stages, run
+    eagerly), with the program's tracing on (`runtime/trace.py`, whose spans
+    open profiler ranges): {span: [device ms, kernels, host ms]}: the device
+    time and count of the kernels, copies and fills launched while each span
+    of SPANS was the innermost one open (by the launch's time on the host,
+    so that the work of the autograd engine's own thread, the rigid plant's
+    backward passes, counts in the span that waits for it), the span's host
+    self time under the profiler (less its children in SPANS), and (device
+    ms, kernels) of the whole pass; or None where the fenced pass did not
+    keep the whole call (one pass only: a kinematic MPC period takes ~15 s
+    under the profiler). Tracing goes on with an empty graph cache
+    (`trace.enable`), so the cache is cleared first: later phases capture
+    anew."""
     import bisect
 
     from torch.autograd import DeviceType
 
     if not PROFILER_RECORDS[0]:
         return None
-    with fenced_profile() as prof:
-        fn()
+    RC.clear()
+    trace.enable()
+    try:
+        with fenced_profile() as prof:
+            fn()
+    finally:
+        trace.disable()
     spans = {name: [0.0, 0, 0.0] for name in SPANS + ("outside the spans",)}
     # the launch times of the kernels' host calls are in the raw events; the
     # averaged events only link a kernel to its op, not to a span open on
@@ -1064,8 +1076,15 @@ def span_profile(fn):
     opened = sorted((e.start_ns(), e.end_ns(), e.name()) for e in events
                     if e.device_type() == DeviceType.CPU and e.name() in SPANS)
     starts = [o[0] for o in opened]
-    for t0, t1, name in opened:
+    parent, stack = [], []  # the index of each span's innermost enclosing one, or -1
+    for i, (t0, t1, name) in enumerate(opened):
+        while stack and opened[stack[-1]][1] < t0:
+            stack.pop()
+        parent.append(stack[-1] if stack else -1)
+        stack.append(i)
         spans[name][2] += (t1 - t0) / 1e6
+        if parent[-1] >= 0:
+            spans[opened[parent[-1]][2]][2] -= (t1 - t0) / 1e6
     launched = {e.correlation_id(): e.start_ns() for e in events
                 if e.device_type() == DeviceType.CPU and e.correlation_id() > 0}
     for e in events:
@@ -1073,7 +1092,9 @@ def span_profile(fn):
             continue
         t = launched.get(e.linked_correlation_id(), e.start_ns())  # (unlinked: its own start)
         i = bisect.bisect_right(starts, t) - 1
-        slot = spans[opened[i][2] if i >= 0 and t <= opened[i][1] else "outside the spans"]
+        while i >= 0 and t > opened[i][1]:  # to the innermost span still open at t
+            i = parent[i]
+        slot = spans[opened[i][2] if i >= 0 else "outside the spans"]
         slot[0] += e.duration_ns() / 1e6
         slot[1] += 1
     return spans, (sum(v[0] for v in spans.values()), sum(v[1] for v in spans.values()))
@@ -1183,7 +1204,7 @@ def phase_closed_loop(tag, weights, dev="cuda"):
               f"{', '.join(f'{x:.1f}' for x in walls)} ms ({MPC_WALL_CALLS} call), replayed p50 "
               f"{np.percentile(replayed, 50):.1f} ms (3 calls; wall) {tag}")
     period_in = tick_inputs(joy, every)
-    with RC.disable_graphs():  # a replay has no spans
+    with RC.disable_graphs():  # eagerly: each kernel is launched inside its span
         torch.cuda.synchronize()
         t = time.perf_counter()
         mpc_period(ctl_l, s60, period_in, S)
@@ -1572,7 +1593,7 @@ def phase_rigid_loop(tag, settle, dev="cuda"):
     # tick's, where the rigid plant sits (a whole rigid period took a minute
     # under the profiler)
     t = time.perf_counter()
-    with RC.disable_graphs():  # a replay has no spans
+    with RC.disable_graphs():  # eagerly: each kernel is launched inside its span
         prof = span_profile(lambda: ctl_l._wbc_stage(s60, inp256))
     print(f"phase 10 profile pass {time.perf_counter() - t:.1f} s")
     tick_wall = float(np.percentile(w, 50))  # the B = 256 ticks' p50 above

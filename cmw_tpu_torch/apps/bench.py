@@ -31,8 +31,12 @@ package's benchmark). Prints ONE JSON line on stdout, with bench.py's keys:
     B x KB chain's graph with kkt_dtype="bf16" on the dense KKT) and
     `cost_pallas_vs_xla` (the sentinel's two costs), written with the
     headline's dict to `--extra-out` as JSON, never to stdout.
-  - `--profile DIR`: a torch.profiler trace of one chain (a replay: the
-    kernels inside it, without the solver's spans), exported into DIR.
+  - `--profile DIR`: a torch.profiler trace of one chain (a replay),
+    exported into DIR. The program's tracing (`runtime/trace.py`) is on from
+    before the chain's capture until the trace is taken, so the trace shows
+    the program's host spans (`bench.chain`, `cache.lookup`, `cache.launch`,
+    ...) around the replay's kernels; the chains timed after it replay the
+    graph with its marks, which tracing no longer reads.
 
 It runs on the card; `--cpu` runs it on the CPU (with `--batch` cut, a
 check of the program, not a measurement). The configuration and KB are
@@ -48,6 +52,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import itertools
 import json
 import os
 import subprocess
@@ -64,11 +69,12 @@ from cmw_tpu_torch.core import contacts
 from cmw_tpu_torch.core.centroidal import pack_state
 from cmw_tpu_torch.ops import roofline as R
 from cmw_tpu_torch.ops.symv import BLK
-from cmw_tpu_torch.runtime import cache
+from cmw_tpu_torch.runtime import cache, trace
 
 BASELINE_SOLVES_PER_S = 1.0 / 0.06  # the reference: one solve per 60 ms MPC tick
 T0 = 1.02  # the gait's time at the first interval: the left foot swinging
 KB = 4  # warm-started solves a chain (bench.py:69)
+_chains = itertools.count()  # chain calls: the request id of each `bench.chain` span
 LATENCY_CHAIN = 10  # warm-started B = 1 solves per latency dispatch (bench.py:201)
 
 
@@ -103,7 +109,8 @@ def chain(solver, params, warm, KB: int):
     """KB warm-started solves of the same parameters, each from the last
     (bench.py:74-78), on the card one replay of the chain's graph. Returns
     (costs [KB, B], prim_res [KB, B])."""
-    return cache.graphed(("bench.chain", solver.cfg, KB), lambda p, w: _chain(solver, p, w, KB), params, warm)
+    with trace.span("bench.chain", next(_chains)):
+        return cache.graphed(("bench.chain", solver.cfg, KB), lambda p, w: _chain(solver, p, w, KB), params, warm)
 
 
 def _chain(solver, params, warm, KB: int):
@@ -128,18 +135,24 @@ def measure(solver, params, KB: int, reps: int, profile_dir: str = ""):
     of the first chain), every chain from a cold start."""
     B, device, dtype = params.x0.shape[0], params.x0.device, params.x0.dtype
     warm = solver.cold_start(B, device=device, dtype=dtype)
-    t = time.perf_counter()
-    first = chain(solver, params, warm, KB)
-    _sync(first[0])
-    first_s = time.perf_counter() - t
     if profile_dir:
-        from torch.profiler import ProfilerActivity, profile
+        trace.enable()  # before the capture: the graph carries its marks, the trace the program's spans
+    try:
+        t = time.perf_counter()
+        first = chain(solver, params, warm, KB)
+        _sync(first[0])
+        first_s = time.perf_counter() - t
+        if profile_dir:
+            from torch.profiler import ProfilerActivity, profile
 
-        activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if device.type == "cuda" else [])
-        with profile(activities=activities) as prof:
-            _sync(chain(solver, params, warm, KB)[0])
-        os.makedirs(profile_dir, exist_ok=True)
-        prof.export_chrome_trace(os.path.join(profile_dir, "bench_chain.json"))
+            activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if device.type == "cuda" else [])
+            with profile(activities=activities) as prof:
+                _sync(chain(solver, params, warm, KB)[0])
+            os.makedirs(profile_dir, exist_ok=True)
+            prof.export_chrome_trace(os.path.join(profile_dir, "bench_chain.json"))
+    finally:
+        if profile_dir:
+            trace.disable()
     t = time.perf_counter()
     for _ in range(reps):
         _sync(chain(solver, params, warm, KB)[0])

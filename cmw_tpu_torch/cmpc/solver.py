@@ -24,9 +24,11 @@ under `runtime.cache.disable_graphs()`, it runs eagerly. The solve:
      as one launch of the fused ADMM kernel (`ops/admm_fused.py`) on the dense
      constraint matrix (`formulation.constraint_dense`).
 
-Profiler spans `mpc.factor`, `mpc.linearize`, `mpc.admm` and
-`mpc.line_search` mark the phases for `torch.profiler` (eager runs only: a
-replay has no spans).
+Trace stages (`runtime/trace.py`) `mpc.factor`, `mpc.linearize`,
+`mpc.admm` and `mpc.line_search` mark the phases: eagerly as host spans, and
+in a graph captured with tracing on as device marks that every replay
+carries. With tracing off they cost one flag check each, and a graph
+captured then carries no marks.
 
 Unknown option strings raise ValueError. The Riccati branch ignores
 `admm_impl` and `kkt_dtype`, as in JAX, and so does the fused ADMM kernel.
@@ -51,7 +53,6 @@ from typing import NamedTuple
 
 import torch
 from torch.func import jacfwd, jvp, vjp, vmap
-from torch.profiler import record_function
 
 from cmw_tpu_torch.cmpc import formulation as F
 from cmw_tpu_torch.cmpc.qp import ADMMState, admm_solve, spd_inverse
@@ -60,7 +61,7 @@ from cmw_tpu_torch.core.consts import constant_like, eye_like
 from cmw_tpu_torch.ops import spd_inverse as ops_spd_inverse
 from cmw_tpu_torch.ops.admm_fused import admm_fused
 from cmw_tpu_torch.ops.symv import BLK, pack_symmetric
-from cmw_tpu_torch.runtime import cache
+from cmw_tpu_torch.runtime import cache, trace
 
 KKT_IMPLS = ("auto", "riccati", "dense")
 INVERSE_IMPLS = ("auto", "pallas", "xla")
@@ -206,7 +207,7 @@ class CentroidalMPCSolver:
                 def sqp_operator(z):
                     return linearize(z, z, riccati_factor(cfg, params, z, rho, lam_sig))
             else:
-                with record_function("mpc.factor"):
+                with trace.stage("mpc.factor"):
                     fac0 = riccati_factor(cfg, params, z0, rho, lam_sig)
 
                 def sqp_operator(z):
@@ -280,7 +281,7 @@ class CentroidalMPCSolver:
             else:
                 # quasi-Newton: one factorisation per solve; later iterations
                 # reuse H0 with exact gradients
-                with record_function("mpc.factor"):
+                with trace.stage("mpc.factor"):
                     _, H0 = gauss_newton(z0)
                     kkt0 = factor(H0)
 
@@ -291,11 +292,11 @@ class CentroidalMPCSolver:
         z, zc, y = z0, zc0, y0
         prim = None
         for _ in range(cfg.sqp_iters):
-            with record_function("mpc.linearize"):
+            with trace.stage("mpc.linearize"):
                 kkt, q = sqp_operator(z)
-            with record_function("mpc.admm"):
+            with trace.stage("mpc.admm"):
                 state, prim = run_admm(kkt, q, z, zc, y)
-            with record_function("mpc.line_search"):
+            with trace.stage("mpc.line_search"):
                 # globalisation: the residual is exactly quadratic in z, so the
                 # merit along dz is exact from one jvp and one more residual:
                 #   r(z + a dz) = r0 + a r1 + a^2 r2,  A(z + a dz) = az0 + a adz

@@ -53,12 +53,23 @@ the wrapper. The warm-up's and the capture's moves are taken back; the
 capture's are recorded with the graph and added on every replay, so a
 graphed call counts what one eager call counts.
 
+Under tracing (`runtime/trace.py`), a card call records the spans
+`cache.lookup` (flatten and key), `cache.lock_wait`, `cache.copy_in`,
+`cache.launch` (`graph.replay()` itself) and `cache.clone_out` under the
+caller's span, and on a miss `cache.capture` with `cache.warm_up` and
+`cache.instantiate` inside; a timing-event pair around each replay gives its
+device time with no profiler. A graph captured with tracing on carries its
+stages' marks (`trace.stage`) and counters (`Entry.traced`: replays, host ns
+by span, device ns, node count, the pool's growth by its capture). A graph
+captured with tracing off carries neither; off, each span site costs one
+flag check.
+
 `disable_graphs()` is the counterpart of `jax.disable_jit()`: calls inside
-it run eagerly. It is the only way to run eagerly on the card, e.g. under
-`torch.profiler`, whose `record_function` spans do not exist inside a
-replay. On a CUDA device a capture or replay error raises; nothing falls
-back to eager. On the CPU `graphed` calls `fn` as is: there are no graphs
-there, and the caller asked for the CPU.
+it run eagerly, e.g. under `torch.profiler` where the kernels should be
+attributed to the eager path's own ops. On a CUDA device a capture or
+replay error raises; nothing falls back to eager. On the CPU `graphed`
+calls `fn` as is: there are no graphs there, and the caller asked for the
+CPU.
 """
 
 from __future__ import annotations
@@ -73,6 +84,7 @@ import torch.utils._pytree as pytree
 
 from cmw_tpu_torch.core import consts
 from cmw_tpu_torch.ops import admm_fused, spd_inverse, symv
+from cmw_tpu_torch.runtime import trace
 
 COUNTED = (spd_inverse, symv, admm_fused)  # modules whose `launches` a graph carries
 CARD = "cuda"  # the device type whose calls are captured (the CPU tests' fake card sets "cpu")
@@ -110,6 +122,7 @@ class Entry(NamedTuple):
     launches: tuple  # K3 / K4 / K5 launches of one replay
     capture_s: float  # warm-up (if any) + capture + instantiation seconds
     instantiate_s: float  # the instantiation's share of capture_s
+    traced: trace.GraphTrace | None  # marks and counters, for a graph captured with tracing on
 
 
 def _depth(name: str) -> int:
@@ -173,8 +186,9 @@ def _record(graph, fn: Callable, static_args):
         return fn(*static_args)
 
 
-def _capture(fn: Callable, leaves: list, spec, device: torch.device, warm: bool) -> Entry:
+def _capture(owner, fn: Callable, leaves: list, spec, device: torch.device, warm: bool) -> Entry:
     global _pool
+    pool_before = pool_bytes() if trace.enabled() else 0
     t0 = time.perf_counter()
     tensors = [leaf for leaf in leaves if isinstance(leaf, torch.Tensor)]
     inputs = [torch.empty(t.shape, dtype=t.dtype, device=device) for t in tensors]
@@ -187,20 +201,24 @@ def _capture(fn: Callable, leaves: list, spec, device: torch.device, warm: bool)
     _state.inside = _depth("inside") + 1
     try:
         if not warm:
-            side = torch.cuda.Stream(device)
-            side.wait_stream(torch.cuda.current_stream(device))
-            with torch.cuda.stream(side):
-                fn(*static_args)
-            torch.cuda.current_stream(device).wait_stream(side)
+            with trace.span("cache.warm_up"):
+                side = torch.cuda.Stream(device)
+                side.wait_stream(torch.cuda.current_stream(device))
+                with torch.cuda.stream(side):
+                    fn(*static_args)
+                torch.cuda.current_stream(device).wait_stream(side)
         mid = read_launches()
         graph = torch.cuda.CUDAGraph(keep_graph=True)  # instantiated below, timed apart from the capture
-        out = _record(graph, fn, static_args)
+        with trace.marking() as marks:
+            out = _record(graph, fn, static_args)
         after = read_launches()
     finally:
         _state.inside -= 1
     t_inst = time.perf_counter()
-    graph.instantiate()
+    with trace.span("cache.instantiate"):
+        graph.instantiate()
     instantiate_s = time.perf_counter() - t_inst
+    capture_s = time.perf_counter() - t0
     _add_launches(_delta(before, after))  # the warm-up and the capture ran nothing for the caller
     out_leaves, out_spec = pytree.tree_flatten(out)
     by_id = {id(t): i for i, t in enumerate(inputs)}
@@ -215,8 +233,12 @@ def _capture(fn: Callable, leaves: list, spec, device: torch.device, warm: bool)
                 seen[id(leaf)] = len(outputs)
                 outputs.append(leaf)
             layout.append(("out", seen[id(leaf)]))
-    return Entry(graph, inputs, outputs, layout, out_spec, _delta(after, mid), time.perf_counter() - t0,
-                 instantiate_s)
+    traced = None
+    if marks is not None:
+        name = owner[0] if isinstance(owner, tuple) and owner and isinstance(owner[0], str) else repr(owner)
+        pool = pool_bytes()
+        traced = trace.GraphTrace(name, marks, trace.graph_nodes(graph), pool, pool - pool_before)
+    return Entry(graph, inputs, outputs, layout, out_spec, _delta(after, mid), capture_s, instantiate_s, traced)
 
 
 def _key(owner, leaves: list, spec):
@@ -256,31 +278,47 @@ def graphed(owner, fn: Callable, *args):
     is a hashable value that, with the inputs' signatures, fixes what fn
     computes."""
     global _done
-    leaves, spec = pytree.tree_flatten(args)
-    tensors = [leaf for leaf in leaves if isinstance(leaf, torch.Tensor)]
-    if not _on_card(tensors):
+    with trace.span("cache.lookup") as lookup:
+        leaves, spec = pytree.tree_flatten(args)
+        tensors = [leaf for leaf in leaves if isinstance(leaf, torch.Tensor)]
+        card = _on_card(tensors)
+        if card:
+            devices = {t.device for t in tensors}
+            if len(devices) != 1:
+                raise ValueError(f"graphed {owner!r}: tensors on {sorted(map(str, devices))}, expected one {CARD} "
+                                 "device")
+            device = next(iter(devices))
+            k = _key(owner, leaves, spec)
+    if not card:
         if _depth("disabled") and not _depth("inside") and any(t.device.type == CARD for t in tensors):
             _warm.add(_key(owner, leaves, spec))  # an eager run on the card: the lazy initialisation is done
         return fn(*args)  # no graphs off the card (and none without a tensor)
-    devices = {t.device for t in tensors}
-    if len(devices) != 1:
-        raise ValueError(f"graphed {owner!r}: tensors on {sorted(map(str, devices))}, expected one {CARD} device")
-    device = next(iter(devices))
-    k = _key(owner, leaves, spec)
-    with _lock, torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device)
-        if _done is not None:
-            stream.wait_event(_done)
-        entry = _graphs.get(k)
-        if entry is None:
-            entry = _graphs[k] = _capture(fn, leaves, spec, device, k in _warm)
-        else:
-            torch._foreach_copy_(entry.inputs, tensors)
-        entry.graph.replay()
-        _add_launches(entry.launches)
-        outs = [t.clone() for t in entry.outputs]
-        _done = torch.cuda.Event()
-        _done.record(stream)
+    with trace.span("cache.lock_wait") as wait:
+        _lock.acquire()
+    try:
+        with torch.cuda.device(device):
+            stream = torch.cuda.current_stream(device)
+            entry, copy = _graphs.get(k), trace.OFF
+            if entry is None:
+                if _done is not None:
+                    stream.wait_event(_done)
+                with trace.span("cache.capture"):
+                    entry = _graphs[k] = _capture(owner, fn, leaves, spec, device, k in _warm)
+            else:
+                with trace.span("cache.copy_in") as copy:
+                    if _done is not None:
+                        stream.wait_event(_done)
+                    torch._foreach_copy_(entry.inputs, tensors)
+            with trace.replay(entry.traced, stream), trace.span("cache.launch") as launch:
+                entry.graph.replay()
+            _add_launches(entry.launches)
+            with trace.span("cache.clone_out") as clone:
+                outs = [t.clone() for t in entry.outputs]
+                _done = torch.cuda.Event()
+                _done.record(stream)
+    finally:
+        _lock.release()
+    trace.count(entry.traced, lookup, wait, copy, launch, clone)
     parts = [tensors[v] if kind == "in" else outs[v] if kind == "out" else v for kind, v in entry.layout]
     return pytree.tree_unflatten(parts, entry.out_spec)
 

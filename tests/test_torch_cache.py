@@ -4,7 +4,9 @@ The CPU has no CUDA graphs, so the cache's own logic runs on a fake card:
 `CARD` set to "cpu", the stream and device calls made no-ops, and the
 capture (`cache._record`) replaced by a FakeGraph that records the captured
 function on its static inputs and, like a real replay, runs it again on
-replay without Python's side effects (the launch counters). Checked:
+replay without Python's side effects (the launch counters), its stages'
+marks recorded again as a replay's event-record nodes are; a FakeEvent keeps
+the host's time of its record as the card's. Checked:
 
   - the keys: the `no_adjust` ablation pair of controllers gets two entries
     (the aliasing that shipped a null ablation in JAX), an equal-valued
@@ -33,6 +35,7 @@ replay without Python's side effects (the launch counters). Checked:
 
 import contextlib
 import threading
+import time
 
 import pytest
 import torch
@@ -46,7 +49,7 @@ from cmw_tpu_torch.core import kinematics as TK
 from cmw_tpu_torch.dist import sweep as TS
 from cmw_tpu_torch.mann.generator import GeneratorConfig
 from cmw_tpu_torch.ops import admm_fused, spd_inverse, symv
-from cmw_tpu_torch.runtime import cache
+from cmw_tpu_torch.runtime import cache, trace
 from cmw_tpu_torch.runtime import loop as TL
 from cmw_tpu_torch.runtime.config import ergocub_gazebo_v1
 from cmw_tpu_torch.runtime.loop import WalkingController
@@ -63,8 +66,23 @@ class FakeStream:
 
 
 class FakeEvent:
+    """Keeps the host's time of its last record() as the card's: on the
+    fake card the work is done when it is launched."""
+
+    def __init__(self, enable_timing=False, blocking=False, interprocess=False, external=False):
+        self.ns = None
+
     def record(self, stream=None):
+        self.ns = time.perf_counter_ns()
+
+    def query(self):
+        return True
+
+    def synchronize(self):
         pass
+
+    def elapsed_time(self, end):
+        return (end.ns - self.ns) / 1e6
 
 
 class FakeGraph:
@@ -73,15 +91,17 @@ class FakeGraph:
     (a replay runs no Python)."""
 
     def __init__(self, keep_graph=False):
-        self.fn = self.args = self.out = None
+        self.fn = self.args = self.out = self.marks = None
 
     def instantiate(self):
         pass
 
     def replay(self):
         counts = cache.read_launches()
-        with cache.disable_graphs():  # what the capture recorded, nested calls inline
+        with cache.disable_graphs(), trace.marking() as again:  # what the capture recorded, nested calls inline
             got = self.fn(*self.args)
+        for mark, now in zip(self.marks or (), again or ()):  # the capture's stage marks record again
+            mark[1].ns, mark[2].ns = now[1].ns, now[2].ns
         for o, g in zip(torch.utils._pytree.tree_leaves(self.out), torch.utils._pytree.tree_leaves(got)):
             if isinstance(o, torch.Tensor) and o is not g:
                 one = tuple(slice(0, 1) if st == 0 else slice(None) for st in o.stride())  # an expanded output's base
@@ -90,7 +110,7 @@ class FakeGraph:
 
 
 def fake_record(graph, fn, static_args):
-    graph.fn, graph.args = fn, static_args
+    graph.fn, graph.args, graph.marks = fn, static_args, getattr(trace._tls, "marks", None)
     graph.out = fn(*static_args)
     return graph.out
 
@@ -110,6 +130,8 @@ def card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "graph_pool_handle", lambda: (0, 1))
     monkeypatch.setattr(torch.cuda, "CUDAGraph", FakeGraph)
     monkeypatch.setattr(torch.cuda, "Event", FakeEvent)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda device=None: None)
+    monkeypatch.setattr(cache, "pool_bytes", lambda: 0)
     monkeypatch.setattr(cache, "_done", None)
     for m in cache.COUNTED:
         monkeypatch.setattr(m, "launches", 0)
