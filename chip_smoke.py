@@ -31,7 +31,13 @@ calls, alone and fed by the MANN trajectory generator, and checks it:
      a sparse random A at B = 4 (the bf16 modes over K5_SHORT_ITERS), and
      walking QPs at B = 4, printed beside the twin's own f32-vs-f64 gap, not
      held; iters = 24, for each operand precision, within ADMM_TOL, two
-     launches on the same inputs bitwise equal;
+     launches on the same inputs bitwise equal; and the Riccati ADMM loop (K2)
+     on the walking QPs of both SQP steps of a cold Riccati solve at the
+     bench's pushes (K2_CASES: the sim preset's T = 20 at B = 1, 256 and 512,
+     the robot preset's T = 13 at B = 1), in f32 within K2_GAP times the
+     twin's own f32-vs-f64 gap (at B = 1 bitwise the twin: K2 takes its order
+     of operations) and in f64 within K2_F64_RTOL, two launches bitwise
+     equal;
   3. the dense-KKT main path with the batched ADMM loop (K3, K4): a cold
      solve and 10 warm-started receding-horizon ticks at B = 1, the
      lateral-push footstep check, then the bench shape (`apps.bench`'s
@@ -40,7 +46,8 @@ calls, alone and fed by the MANN trajectory generator, and checks it:
   4. the dense-KKT main path with the fused ADMM kernel (K3, K5,
      admm_impl="fused"): the same chains; K5 must launch exactly sqp_iters
      times per solve and K4 never;
-  5. the default Riccati main path (plain PyTorch), the same chains;
+  5. the default Riccati main path, the same chains; K2 must launch exactly
+     sqp_iters times per solve and K3-K5 never;
   6. numerics sentinel: the card's dense solve vs the port's plain CPU solve,
      the card's Riccati and fused solves vs its dense solve and the fused vs
      the Riccati solve, each within |dcost| <= 0.005 (|cost| + 1) and
@@ -50,7 +57,7 @@ calls, alone and fed by the MANN trajectory generator, and checks it:
   7. timings (printed, not asserted): each kernel at B = 1 and B = 512 beside
      its bound (and, where bytes set it, the rate reached on those bytes),
      its plain twin and, where one exists, the one PyTorch call
-     that computes the same function (K3's two on PyTorch's default linalg
+     that computes the same function, and K2 at each case of K2_CASES (K3's two on PyTorch's default linalg
      backend, as before the graphs, and on cuSOLVER, the package's setting,
      beside them), and K5 at the longer horizons; one
      torch.profiler pass over an SPD inverse, a packed symv and a fused ADMM
@@ -206,6 +213,7 @@ from cmw_tpu_torch.mann import input_builder as IB
 from cmw_tpu_torch.mann import network as N
 from cmw_tpu_torch.ops import _build
 from cmw_tpu_torch.ops import admm_fused as K5
+from cmw_tpu_torch.ops import riccati_admm as K2
 from cmw_tpu_torch.ops import roofline as R
 from cmw_tpu_torch.ops import spd_inverse as K3
 from cmw_tpu_torch.ops import symv as K4
@@ -214,7 +222,7 @@ from cmw_tpu_torch.runtime import checkpoint
 from cmw_tpu_torch.runtime import loop as RL
 from cmw_tpu_torch.runtime import telemetry as RT
 from cmw_tpu_torch.runtime import trace
-from cmw_tpu_torch.runtime.config import ergocub_gazebo_v1
+from cmw_tpu_torch.runtime.config import ergocub_gazebo_v1, ergocub_sn000
 from cmw_tpu_torch.sim import rigid_body as RB
 
 RESID_TOL = 1e-4  # ||I - M X||_inf, the inverse's done-check
@@ -225,6 +233,16 @@ K3_STAGES = (("diagonal_kernel", "diagonal factor"), ("panel_kernel", "panel"), 
              ("triinv_kernel", "triangular inverse"), ("output_kernel", "output S X^T X S"))
 K4_STAGES = (("partials_kernel", "row and column partials"), ("reduce_kernel", "fixed-order reduce"))  # csrc/symv.cu
 K5_STAGES = (("compact_kernel", "compaction of A"), ("loop_kernel", "cluster loop"))  # csrc/admm_fused.cu
+K2_STAGES = (("riccati_admm_kernel", "sweeps and rows"),)  # csrc/riccati_admm.cu
+# K2's cases: the presets' Riccati MPC on walking QPs of a cold solve at the
+# bench's pushes (phase 2 holds them, phase 7 times them)
+K2_CASES = (("gz", ergocub_gazebo_v1().mpc, (1, 256, 512)), ("sn000", ergocub_sn000().mpc, (1,)))
+# K2 in f32 against the twin in f64 on the same inputs, within K2_GAP times the
+# twin's own f32 gap (+ K2_FLOOR), each gap relative to the largest entry
+# (prim_res to zc's, of which it is a difference): both take f32 sums in other
+# orders through 24-30 iterations whose rows span rho 10..1e4
+# (tests/test_torch_riccati_admm.py); K2 in f64 within K2_F64_RTOL of the twin
+K2_GAP, K2_FLOOR, K2_F64_RTOL = 4.0, 1e-6, 1e-12
 SYMV_RTOL, SYMV_ATOL = 2e-5, 1e-4  # f32 sums in another order (tests/test_ops.py:138)
 # K4's (B, nb): one item and the bench batch at one, two and four blocks a
 # side (n = 512 is the main path's), and nb = 9 past the old cap of 8
@@ -592,6 +610,108 @@ def chaos_witness(name, args, modes=("bf16", "bf16x2")):
               f"median {float(chaos.median()):.3e} largest {float(chaos.max()):.3e}")
 
 
+def riccati_qps(cfg, B, device="cuda", dtype=torch.float32):
+    """The ADMM inputs of each SQP step of a cold Riccati solve at the bench's
+    walking parameters (B lateral pushes in linspace(-1, 1)), recorded eagerly
+    with K2's twin: [(fac, op, (q, l, u, rho, x, zc, y))]."""
+    solver = CentroidalMPCSolver(cfg)
+    params = BENCH.make_params(cfg, BENCH.lateral_pushes(B, dtype=dtype), device=device, dtype=dtype)
+    got, real = [], K2.riccati_admm
+
+    def record(cfg_, fac, op, *args, iters, sigma, alpha):
+        got.append((fac, op, args))
+        return K2.riccati_admm_ref(cfg_, fac, op, *args, iters=iters, sigma=sigma, alpha=alpha)
+
+    K2.riccati_admm = record
+    try:
+        with RC.disable_graphs():
+            solver.solve(params, solver.cold_start(B, device=device, dtype=dtype))
+    finally:
+        K2.riccati_admm = real
+    require(len(got) == cfg.sqp_iters, f"riccati_qps: {len(got)} ADMM calls in a solve, not {cfg.sqp_iters}")
+    return got
+
+
+def k2_kw(cfg):
+    return dict(iters=cfg.admm_iters, sigma=cfg.admm_sigma, alpha=cfg.admm_alpha)
+
+
+def rel_gap(a, b, scale=None):
+    """max |a - b| / max |scale| (scale: b where None)."""
+    scale = b if scale is None else scale
+    return float((a.double() - b.double()).abs().max() / scale.double().abs().max().clamp(min=1e-30))
+
+
+def check_riccati_admm(name, cfg, qps):
+    """K2 against its twin on each recorded QP: f32 within K2_GAP times the
+    twin's own f32-vs-f64 gap (+ K2_FLOOR), f64 within K2_F64_RTOL of the
+    twin's f64, two launches bitwise equal; at B = 1, where K2 takes the
+    twin's order of operations, bitwise the twin in f32. Returns the largest
+    f32 gap."""
+    worst = 0.0
+    for k, (fac, op, args) in enumerate(qps):
+        got = (*K2.riccati_admm(cfg, fac, op, *args, **k2_kw(cfg)),)
+        again = (*K2.riccati_admm(cfg, fac, op, *args, **k2_kw(cfg)),)
+        k32 = (*got[0], got[1])
+        same = all(torch.equal(a, b) for a, b in zip(k32, (*again[0], again[1])))
+        st, pr = K2.riccati_admm_ref(cfg, fac, op, *args, **k2_kw(cfg))
+        t32 = (*st, pr)
+        fac64 = type(fac)(*(t.double() for t in fac))
+        op64 = type(op)(*(t.double() for t in op))
+        args64 = tuple(t.double() for t in args)
+        st, pr = K2.riccati_admm_ref(cfg, fac64, op64, *args64, **k2_kw(cfg))
+        t64 = (*st, pr)
+        st, pr = K2.riccati_admm(cfg, fac64, op64, *args64, **k2_kw(cfg))
+        k64 = (*st, pr)
+        torch.cuda.synchronize()
+        # prim_res = max |A x - zc| is a difference of terms the size of zc: held on zc's scale
+        scale = (None, None, None, t64[1])
+        gaps = {f: (rel_gap(a, c, sc), rel_gap(b, c, sc))
+                for f, a, b, c, sc in zip(("x", "zc", "y", "prim"), k32, t32, t64, scale)}
+        f64 = max(float((a - c).abs().max() / c.abs().max().clamp(min=1.0)) for a, c in zip(k64, t64))
+        f64 = max(f64, rel_gap(k64[0], t64[0]))
+        ok = all(g <= K2_GAP * own + K2_FLOOR for g, own in gaps.values()) and f64 < K2_F64_RTOL
+        exact = all(torch.equal(a, b) for a, b in zip(k32, t32))
+        worst = max(worst, max(float((a - b).abs().max()) for a, b in zip(k32, t32)))
+        print(f"phase 2 K2 riccati_admm {name} SQP step {k}: vs twin f64, kernel f32 / twin f32 "
+              + ", ".join(f"{f} {g:.2e} / {own:.2e}" for f, (g, own) in gaps.items())
+              + f" (limit {K2_GAP:g} x twin + {K2_FLOOR:g}); kernel f64 {f64:.2e} (limit {K2_F64_RTOL:g}); "
+              f"two launches bitwise equal {same}; bitwise the twin {exact}")
+        require(ok, f"K2 disagrees with its twin on {name} SQP step {k}")
+        require(exact or k32[0].shape[0] > 1, f"K2 at B = 1 is not bitwise its twin ({name} SQP step {k})")
+        require(same, f"K2 gives two results on the same inputs ({name})")
+    return worst
+
+
+def bound_riccati_admm(cfg, B, dtype=torch.float32):
+    return R.bound(*R.riccati_admm_work(B, cfg.T, cfg.n_contacts, cfg.n_corners, cfg.n_slots, cfg.admm_iters,
+                                        dtype.itemsize))
+
+
+def riccati_admm_times(tag, qps_by_case):
+    """Phase 7's K2 rows: each case of K2_CASES at its batches, kernel and
+    plain twin (CUDA events) beside the bound. qps_by_case: {case: the
+    largest batch's recorded QPs}. Returns {(case, B): (ms, plain, None)} and
+    {(case, B): bound}."""
+    times, bounds = {}, {}
+    for case, cfg, batches in K2_CASES:
+        fac, op, args = qps_by_case[case][0]
+        for B in batches:
+            f = type(fac)(*(t[:B].contiguous() for t in fac))
+            o = type(op)(*(t[:B].contiguous() for t in op))
+            a = tuple(t[:B].contiguous() for t in args)
+            reps = 20 if B == 1 else 5
+            ms = cuda_ms(lambda: K2.riccati_admm(cfg, f, o, *a, **k2_kw(cfg)), reps)
+            plain = cuda_ms(lambda: K2.riccati_admm_ref(cfg, f, o, *a, **k2_kw(cfg)), 2)
+            b_ms, b_by, t_bytes, t_ops = bound_riccati_admm(cfg, B)
+            times[(case, B)], bounds[(case, B)] = (ms, plain, None), (b_ms, b_by, t_bytes, t_ops)
+            print(f"phase 7 time riccati_admm {case} (T={cfg.T}, iters={cfg.admm_iters}) B={B}: kernel {ms:.4f} ms, "
+                  f"plain twin {plain:.4f} ms, library none, bound {b_ms:.4f} ms ({b_by}; bytes {t_bytes:.4f} ms, "
+                  f"operations {t_ops:.4f} ms), kernel at {100 * b_ms / ms:.1f} % of the bound; "
+                  f"{K2.plan(cfg.T, cfg.n_contacts, cfg.n_corners, cfg.n_slots, torch.float32)} {tag}")
+    return times, bounds
+
+
 def tick_chain(solver, cfg, ticks, push=0.0):
     """B = 1: a cold solve, then `ticks` warm-started receding-horizon ticks
     (t0 advances by dt, x0 is the previous solve's predicted next state).
@@ -774,7 +894,7 @@ def coast(ctl, s):
     return s._replace(t=s.t + cfg.mpc.dt, tick=s.tick + cfg.mpc_every, x9=x9)
 
 
-KERNELS = {"spd_inverse": K3, "symv_packed": K4, "admm_fused": K5}
+KERNELS = {"spd_inverse": K3, "symv_packed": K4, "admm_fused": K5, "riccati_admm": K2}
 
 
 def zero_launches():
@@ -931,8 +1051,11 @@ def phase_mann_mpc(tag):
     print(f"phase 8 MANN -> MPC main path: 2 B=256 MPC stages (fused, riccati) and {RECEDING_EAGER} + "
           f"{RECEDING_TICKS} B=1 fused stages (eager, replayed), each calling the generator and re-rooting it {fused.cfg.mann_advance} knots in "
           f"(t = {float(s.t[0]):.2f} s, CoM {[round(c, 4) for c in com]}, last cost {cost:.4f}); launches {launches}")
-    require(launches["spd_inverse"] > 0 and launches["admm_fused"] == cfg_fused.sqp_iters * n_fused,
-            f"MANN -> MPC launches {launches}, expected admm_fused {cfg_fused.sqp_iters} x {n_fused} fused solves")
+    n_ric = 1  # the B = 256 Riccati stage
+    require(launches["spd_inverse"] > 0 and launches["admm_fused"] == cfg_fused.sqp_iters * n_fused
+            and launches["riccati_admm"] == ric.cfg.mpc.sqp_iters * n_ric,
+            f"MANN -> MPC launches {launches}, expected admm_fused {cfg_fused.sqp_iters} x {n_fused} fused solves, "
+            f"riccati_admm {ric.cfg.mpc.sqp_iters} x {n_ric} Riccati solves")
     for mode, x in lat.items():
         print(f"phase 8 time MANN -> MPC fused B=1 MPC stage (generator + solve, warm, {mode}): p50 "
               f"{np.percentile(x, 50):.1f} ms, p90 {np.percentile(x, 90):.1f} ms, max {x.max():.1f} ms "
@@ -1133,7 +1256,7 @@ def phase_closed_loop(tag, weights, dev="cuda"):
     got = read_launches()
     add(got)
     n_mpc = -(-CLOSED_TICKS // every)
-    require(got["spd_inverse"] >= n_mpc and got["admm_fused"] == sqp * n_mpc,
+    require(got["spd_inverse"] >= n_mpc and got["admm_fused"] == sqp * n_mpc and got["riccati_admm"] == 0,
             f"closed loop B=1 launches {got}, expected admm_fused {sqp} x {n_mpc} MPC ticks")
     prim, err = closed_invariants("closed loop B=1 fused", tel)
     _, tel64 = ctl64.run_episode(ctl64.initial_state(1, dtype=torch.float64), tick_inputs(joy1.cpu().double(),
@@ -1151,8 +1274,8 @@ def phase_closed_loop(tag, weights, dev="cuda"):
     _, tel_d = ctl_dense.run_episode(ctl_dense.initial_state(1), tick_inputs(joy1, CLOSED_PERIOD))
     got = read_launches()
     add(got)
-    require(got["spd_inverse"] >= 1 and got["symv_packed"] > 0 and got["admm_fused"] == 0,
-            f"closed loop dense launches {got}")
+    require(got["spd_inverse"] >= 1 and got["symv_packed"] > 0 and got["admm_fused"] == 0
+            and got["riccati_admm"] == 0, f"closed loop dense launches {got}")
     prim_d, err_d = closed_invariants("closed loop B=1 dense", tel_d)
     n = min(tel_d.q.shape[1], tel.q.shape[1])
     dc = float((tel_d.com_mpc[:, :n] - tel.com_mpc[:, :n]).abs().max())
@@ -1171,7 +1294,7 @@ def phase_closed_loop(tag, weights, dev="cuda"):
     s60, tel_l = ctl_l.run_episode(s_l, tick_inputs(joy, S))
     got = read_launches()
     add(got)
-    require(got["admm_fused"] == sqp * 2, f"closed loop B=256 launches {got}")
+    require(got["admm_fused"] == sqp * 2 and got["riccati_admm"] == 0, f"closed loop B=256 launches {got}")
     prim_l, err_l = closed_invariants("closed loop B=256 lifted", tel_l)
     swinging = int((tel_l.foot_contact < 0.5).any(-1).any(-1).sum())
     require(swinging > 0, "closed loop B=256 lifted: no foot ever leaves the ground")
@@ -1524,7 +1647,7 @@ def phase_rigid_loop(tag, settle, dev="cuda"):
     got = read_launches()
     add(got)
     n_mpc = -(-RIGID_TICKS // every)
-    require(got["spd_inverse"] >= n_mpc and got["admm_fused"] == sqp * n_mpc,
+    require(got["spd_inverse"] >= n_mpc and got["admm_fused"] == sqp * n_mpc and got["riccati_admm"] == 0,
             f"rigid loop B=1 launches {got}, expected admm_fused {sqp} x {n_mpc} MPC ticks")
     up, z, prim = rigid_invariants("rigid loop B=1", tel)
     t = time.perf_counter()
@@ -1552,7 +1675,8 @@ def phase_rigid_loop(tag, settle, dev="cuda"):
     wall_l = time.perf_counter() - t
     got = read_launches()
     add(got)
-    require(got["admm_fused"] == sqp * (-(-S // every)), f"rigid loop B=256 launches {got}")
+    require(got["admm_fused"] == sqp * (-(-S // every)) and got["riccati_admm"] == 0,
+            f"rigid loop B=256 launches {got}")
     up_l, z_l, prim_l = rigid_invariants("rigid loop B=256, unpushed items", items_of(tel_l, slice(0, None, 2)))
     up_p, z_p, prim_p = rigid_invariants("rigid loop B=256, pushed items", items_of(tel_l, slice(1, None, 2)),
                                          solved=False)
@@ -1829,7 +1953,7 @@ def phase_sweep(tag, sweep):
         cfg = ergocub_gazebo_v1()
         stages = SWEEP_B // SWEEP_CHUNK * round(SWEEP_SECONDS / cfg.wbc_dt) // cfg.mpc_every
         want = {"spd_inverse": stages, "symv_packed": cfg.mpc.sqp_iters * cfg.mpc.admm_iters * stages,
-                "admm_fused": 0}
+                "admm_fused": 0, "riccati_admm": 0}
         require(launches == want, f"sweep CLI launches {launches}, expected {want} (10 MPC stages x 2 chunks)")
         print(f"phase 11 sweep CLI (apps.sweep.main {' '.join(SWEEP_ARGS)}), {SWEEP_B} scenarios in chunks of "
               f"{SWEEP_CHUNK}: launches {launches}; wall {wall:.2f} s (the CLI's own {out['wall_seconds']} s), "
@@ -1991,8 +2115,8 @@ def phase_remaining(tag, cfg_dense):
         require(prim < BF16_PRIM_MAX and off < BF16_COST_RTOL,
                 f"bf16 tail {tail}: prim_res {prim}, cost offset {off} against f32, outside JAX's envelope")
     launches = read_launches()
-    require(launches["spd_inverse"] > 0 and launches["symv_packed"] == 0 and launches["admm_fused"] == 0,
-            f"bf16 runs' launches {launches}: K3 must launch, K4 and K5 not")
+    require(launches["spd_inverse"] > 0 and launches["symv_packed"] == 0 and launches["admm_fused"] == 0
+            and launches["riccati_admm"] == 0, f"bf16 runs' launches {launches}: K3 must launch, K4, K5 and K2 not")
     for tail in BF16_TAILS:
         print(f"phase 12 bf16 KKT tail {tail}: B=512 x KB=4 dense chain {rates[tail][0]:.1f} solves/s "
               f"(bf16_kkt_solves_per_s; f32 dense {512 * 4 / s32:.1f}), chain max prim {rates[tail][1]:.2e}; "
@@ -2119,21 +2243,25 @@ def phase_benchmarks(tag):
     require(math.isfinite(rec["value"]) and rec["value"] > 0, f"apps.bench value {rec['value']}")
     require(0 < ex["mfu_est"] <= 1.05 and 0 < ex["hbm_bw_util_est"] <= 1.05,
             f"apps.bench mfu_est {ex['mfu_est']}, hbm_bw_util_est {ex['hbm_bw_util_est']} outside (0, 1.05]")
-    # the Riccati headline and B = 1 chains launch nothing; the sentinel's dense
-    # Cholesky solve takes K4 every ADMM iteration; the bf16 chain K3 once a solve
+    # the Riccati headline, its sentinel solve and the B = 1 latency chains take
+    # K2 once an SQP step; the sentinel's dense Cholesky solve takes K4 every
+    # ADMM iteration; the bf16 chain K3 once a solve
     cfg = ergocub_mpc_config()
-    want = {"spd_inverse": solves, "symv_packed": cfg.sqp_iters * cfg.admm_iters, "admm_fused": 0}
+    ric_solves = solves + 1 + (1 + BENCH_SAMPLES) * BENCH.LATENCY_CHAIN
+    want = {"spd_inverse": solves, "symv_packed": cfg.sqp_iters * cfg.admm_iters, "admm_fused": 0,
+            "riccati_admm": cfg.sqp_iters * ric_solves}
     require(l_bench == want, f"apps.bench launches {l_bench}, expected {want}")
 
     for which, per_solve in (("both", {"spd_inverse": 1, "symv_packed": cfg.sqp_iters * cfg.admm_iters,
-                                        "admm_fused": 0}),
-                             ("fused", {"spd_inverse": 1, "symv_packed": 0, "admm_fused": cfg.sqp_iters})):
+                                        "admm_fused": 0, "riccati_admm": cfg.sqp_iters}),
+                             ("fused", {"spd_inverse": 1, "symv_packed": 0, "admm_fused": cfg.sqp_iters,
+                                        "riccati_admm": 0})):
         t = time.perf_counter()
         lines, launches = captured(bench_kkt.main, [which, "--reps", str(BENCH_REPS)])
         for line in lines:
             print(f"phase 13 apps.bench_kkt {which} B=512: {line} {tag}")
         print(f"phase 13 apps.bench_kkt {which}: launches {launches} ({time.perf_counter() - t:.1f} s)")
-        want = {name: n * solves for name, n in per_solve.items()}  # "both": its riccati line launches nothing
+        want = {name: n * solves for name, n in per_solve.items()}  # "both": a dense and a Riccati line
         require(launches == want, f"apps.bench_kkt {which} launches {launches}, expected {want}")
         l_bench = {name: l_bench[name] + launches[name] for name in l_bench}
 
@@ -2142,7 +2270,10 @@ def phase_benchmarks(tag):
     for line in lines:
         print(f"phase 13 apps.breakdown B=512: {line} {tag}")
     print(f"phase 13 apps.breakdown: launches {launches} ({time.perf_counter() - t:.1f} s)")
-    want = {"spd_inverse": 1 + BENCH_REPS, "symv_packed": 0, "admm_fused": 0}  # the inverse alone; Riccati solves
+    # the inverse alone takes K3; the Riccati solves (breakdown.SOLVES, 1 + reps each) K2 once an SQP step
+    sqp_steps = sum(dataclasses.replace(cfg, **kw).sqp_iters for _, kw in breakdown.SOLVES)
+    want = {"spd_inverse": 1 + BENCH_REPS, "symv_packed": 0, "admm_fused": 0,
+            "riccati_admm": (1 + BENCH_REPS) * sqp_steps}
     require(launches == want, f"apps.breakdown launches {launches}, expected {want}")
     print(f"phase 13 took {time.perf_counter() - t_phase:.1f} s")
     return {name: l_bench[name] + launches[name] for name in l_bench}
@@ -2159,7 +2290,8 @@ GRAPH_WIDE_B = 256  # the plant's and the WBC stage's wide batch
 # each to the wrapper that launches it
 HAND_KERNEL = re.compile(r"^(?:void )?\(anonymous namespace\)::(\w+)[(<]")
 HAND_KERNELS = {kernel: name for name, stages in (("spd_inverse", K3_STAGES), ("symv_packed", K4_STAGES),
-                                                  ("admm_fused", K5_STAGES)) for kernel, _ in stages}
+                                                  ("admm_fused", K5_STAGES), ("riccati_admm", K2_STAGES))
+                for kernel, _ in stages}
 # per wrapper: its kernels in one call, read off phase 7's one-call profiles
 # (else, in phase 14, off an eager call's trace)
 KERNELS_PER_CALL = {}
@@ -2427,7 +2559,7 @@ def run(refs):
     # --- 2. kernels vs plain twins on the card ------------------------------
     M_real, qp4 = cold_linearisation(cfg_dense, BENCH.make_params(cfg_dense, lateral([-1.0, 0.0, 0.6, 1.2])))
     gen = torch.Generator(device=dev).manual_seed(7)
-    errs = {"spd_inverse": 0.0, "symv_packed": 0.0, "admm_fused": 0.0}
+    errs = dict.fromkeys(KERNELS, 0.0)
     for name, M in (("walking KKT", M_real), ("scaled random SPD", scaled_spd(4, 504, gen))):
         errs["spd_inverse"] = max(errs["spd_inverse"], check_spd_inverse(name, M))
     for n in K3_SIZES:  # the tiled kernel's masked edge
@@ -2501,24 +2633,34 @@ def run(refs):
         check_admm_fused(name, sparse, ("bf16", "bf16x2"), iters=K5_SHORT_ITERS)
         chaos_witness(f"walking QPs T={T} B=4", args, modes=tuple(ADMM_TOL))
     del k5_cases, dense_big
+    # K2 on walking QPs of both presets' Riccati MPC (the largest batch's QPs are phase 7's)
+    k2_qps = {}
+    for case, cfg_k2, batches in K2_CASES:
+        for B in batches:
+            qps = riccati_qps(cfg_k2, B)
+            errs["riccati_admm"] = max(errs["riccati_admm"], check_riccati_admm(f"{case} B={B}", cfg_k2, qps))
+        k2_qps[case] = qps
 
     # --- 3. dense main path: K3 + K4 ----------------------------------------
     dense = CentroidalMPCSolver(cfg_dense)
     dense_ticks, dense_costs, l_dense = main_path("phase 3 dense", dense, cfg_dense)
-    require(l_dense["spd_inverse"] > 0 and l_dense["symv_packed"] > 0 and l_dense["admm_fused"] == 0,
-            f"dense path launches {l_dense}")
+    require(l_dense["spd_inverse"] > 0 and l_dense["symv_packed"] > 0 and l_dense["admm_fused"] == 0
+            and l_dense["riccati_admm"] == 0, f"dense path launches {l_dense}")
 
     # --- 4. fused main path: K3 + K5 ----------------------------------------
     fused = CentroidalMPCSolver(cfg_fused)
     fused_ticks, fused_costs, l_fused = main_path("phase 4 fused", fused, cfg_fused)
     n_solves = 11 + 1 + 4
     require(l_fused["admm_fused"] == cfg_fused.sqp_iters * n_solves and l_fused["spd_inverse"] > 0
-            and l_fused["symv_packed"] == 0, f"fused path launches {l_fused}, expected admm_fused "
+            and l_fused["symv_packed"] == 0 and l_fused["riccati_admm"] == 0, f"fused path launches {l_fused}, expected admm_fused "
             f"{cfg_fused.sqp_iters} x {n_solves} solves")
 
-    # --- 5. default main path: Riccati, plain PyTorch ------------------------
+    # --- 5. default main path: Riccati, K2 ------------------------------------
     ric = CentroidalMPCSolver(cfg_ric)
-    ric_ticks, ric_costs, _ = main_path("phase 5 riccati", ric, cfg_ric)
+    ric_ticks, ric_costs, l_ric = main_path("phase 5 riccati", ric, cfg_ric)
+    want = dict.fromkeys(KERNELS, 0)
+    want["riccati_admm"] = cfg_ric.sqp_iters * n_solves
+    require(l_ric == want, f"riccati path launches {l_ric}, expected {want}")
 
     # --- 6. numerics sentinel -----------------------------------------------
     pushes = [0.0, -1.0, 1.0, 1.2]
@@ -2591,6 +2733,9 @@ def run(refs):
         print(f"phase 7 time {name} B={B}: kernel {ms:.4f} ms, plain twin {plain:.4f} ms, library {lib_s}{backend}, "
               f"bound {b_ms:.4f} ms ({b_by}; bytes {t_bytes:.4f} ms, operations {t_ops:.4f} ms), kernel at "
               f"{100 * b_ms / ms:.1f} % of the bound{rate} {tag}")
+    # K2 at both presets' shapes; its B = 512 row is the record's
+    k2_times, k2_bounds = riccati_admm_times(tag, k2_qps)
+    times[("riccati_admm", B512)], bounds[("riccati_admm", B512)] = k2_times[("gz", B512)], k2_bounds[("gz", B512)]
     # K5's launch at each horizon, and its time at the longer ones (B = 512
     # only where its inputs take a few GB: the last reads a dense A of 22 MB
     # per scenario)
@@ -2615,9 +2760,14 @@ def run(refs):
         pb = pk_real[:1].expand(B, 10, 128, 128).contiguous()
         vb = v_real[:1].expand(B, 512).contiguous()
         ab = tuple(a[:B].contiguous() for a in k5_args[B512])
+        fac, op, qa = k2_qps["gz"][0]
+        kb = (type(fac)(*(t[:B].contiguous() for t in fac)), type(op)(*(t[:B].contiguous() for t in op)),
+              *(t[:B].contiguous() for t in qa))
         for name, fn, kernel_stages in (("spd_inverse", lambda: K3.spd_inverse(Mb), K3_STAGES),
                                         ("symv_packed", lambda: K4.symv_packed(pb, vb), K4_STAGES),
-                                        ("admm_fused", lambda: K5.admm_fused(*ab, iters=ADMM_ITERS), K5_STAGES)):
+                                        ("admm_fused", lambda: K5.admm_fused(*ab, iters=ADMM_ITERS), K5_STAGES),
+                                        ("riccati_admm", lambda: K2.riccati_admm(cfg_ric, *kb, **k2_kw(cfg_ric)),
+                                         K2_STAGES)):
             stages = profile_stages(fn, kernel_stages)
             if stages is None:
                 print(f"phase 7 profile {name} B={B}: {NOT_PROFILED} {tag}")
@@ -2694,15 +2844,16 @@ def run(refs):
 
     sources = {"spd_inverse": ("cmw_tpu_torch/csrc/spd_inverse.cu", "cmw_tpu/ops/spd_inverse.py:132"),
                "symv_packed": ("cmw_tpu_torch/csrc/symv.cu", "cmw_tpu/ops/symv.py:77"),
-               "admm_fused": ("cmw_tpu_torch/csrc/admm_fused.cu", "cmw_tpu/ops/admm_fused.py:143")}
+               "admm_fused": ("cmw_tpu_torch/csrc/admm_fused.cu", "cmw_tpu/ops/admm_fused.py:143"),
+               "riccati_admm": ("cmw_tpu_torch/csrc/riccati_admm.cu", "none (JAX runs the loop as XLA)")}
     record = {"kernels": []}
     for name, (source, replaces) in sources.items():
         ms, plain, lib = times[(name, B512)]
         b_ms, b_by, _, _ = bounds[(name, B512)]
         record["kernels"].append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": (l_dense[name] + l_fused[name] + l_mann[name] + l_closed[name] + l_rigid[name] + l_sweep[name]
-                         + l_rest[name] + l_bench[name]),
+            "launches": (l_dense[name] + l_fused[name] + l_ric[name] + l_mann[name] + l_closed[name] + l_rigid[name]
+                         + l_sweep[name] + l_rest[name] + l_bench[name]),
             "max_abs_err": errs[name],
             "ms": ms, "plain_ms": plain,
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib,

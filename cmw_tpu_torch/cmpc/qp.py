@@ -9,8 +9,10 @@ with a matrix-free constraint operator and the KKT operator
 M = H + sigma I + A^T rho A applied through one of three x-updates: the
 dense inverse `minv` (a batched matmul), its packed lower triangle
 `minv_packed` (`ops/symv.py`), or a factored `apply_fn` (the Riccati
-sweeps, `cmpc/riccati.py`). The dense equality (and box) QPs of the
-differential IK are solved through their KKT system.
+sweeps, `cmpc/riccati.py`). With the Riccati sweeps this loop is the plain
+twin of the Riccati ADMM kernel (`ops/riccati_admm.py`), which runs it on the
+card. The dense equality (and box) QPs of the differential IK are solved
+through their KKT system.
 """
 
 from __future__ import annotations

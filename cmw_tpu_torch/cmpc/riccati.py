@@ -15,7 +15,9 @@ and a global parameter P. A P-carrying backward Riccati recursion factors M
 once per solve (`riccati_factor`); each ADMM iteration then solves M x = rhs
 with one backward and one forward vector sweep over the T stages
 (`riccati_apply`). The apply equals the dense inverse to f64 round-off
-(tests/test_torch_riccati.py).
+(tests/test_torch_riccati.py). On the card the solver runs the whole ADMM
+loop, these sweeps included, as one kernel launch (`ops/riccati_admm.py`);
+`riccati_apply` is the x-update of that kernel's twin, the CPU's path.
 
 The augmented-state size is ns = 9 + nu, computed from the config (it is
 33 at the production config), and the gain shapes are checked.

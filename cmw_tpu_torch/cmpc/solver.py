@@ -15,6 +15,10 @@ under `runtime.cache.disable_graphs()`, it runs eagerly. The solve:
      (quasi-Newton) or per SQP iteration (`refactor_every_sqp`):
      - Riccati branch (`kkt_impl` "auto"/"riccati", the default): the
        stage-wise factor of `cmpc/riccati.py`, applied with vector sweeps;
+       each SQP iteration's ADMM loop, sweeps and constraint rows together,
+       is one launch of the Riccati ADMM kernel (`ops/riccati_admm.py`) on the
+       card and its plain twin, `qp.admm_solve` with `riccati_apply`, on the
+       CPU;
      - dense branch (`kkt_impl="dense"`): J by `vmap(jacfwd)`, H = J^T J,
        M^-1 by the inverse kernel (`ops/spd_inverse.py`) or plain Cholesky,
        applied as a batched matmul or by the packed symv kernel;
@@ -56,8 +60,9 @@ from torch.func import jacfwd, jvp, vjp, vmap
 
 from cmw_tpu_torch.cmpc import formulation as F
 from cmw_tpu_torch.cmpc.qp import ADMMState, admm_solve, spd_inverse
-from cmw_tpu_torch.cmpc.riccati import riccati_apply, riccati_factor
+from cmw_tpu_torch.cmpc.riccati import riccati_factor
 from cmw_tpu_torch.core.consts import constant_like, eye_like
+from cmw_tpu_torch.ops import riccati_admm as ops_riccati_admm
 from cmw_tpu_torch.ops import spd_inverse as ops_spd_inverse
 from cmw_tpu_torch.ops.admm_fused import admm_fused
 from cmw_tpu_torch.ops.symv import BLK, pack_symmetric
@@ -193,10 +198,9 @@ class CentroidalMPCSolver:
                 return pullback(Jv)[0] + cfg.levenberg * v
 
             def run_admm(fac, q, z, zc, y):
-                return admm_solve(
-                    None, q, matvec, rmatvec, l, u, rho, ADMMState(z, zc, y),
+                return ops_riccati_admm.riccati_admm(
+                    cfg, fac, con_op, q, l, u, rho, z, zc, y,
                     iters=cfg.admm_iters, sigma=cfg.admm_sigma, alpha=cfg.admm_alpha,
-                    apply_fn=lambda r: riccati_apply(cfg, fac, r),
                 )
 
             def linearize(z, z_lin, fac):

@@ -1,4 +1,4 @@
-"""Hand-written Hopper kernels of the dense KKT path, one module each.
+"""Hand-written Hopper kernels of the solve, one module each.
 
   spd_inverse  batched SPD inverse (csrc/spd_inverse.cu), replaces the
                Pallas `spd_inverse_pallas`
@@ -6,6 +6,9 @@
                `symv_packed`
   admm_fused   all ADMM iterations of one SQP step (csrc/admm_fused.cu),
                replaces the Pallas `admm_fused_pallas`
+  riccati_admm all ADMM iterations of one SQP step on the Riccati path
+               (csrc/riccati_admm.cu); replaces no Pallas kernel (JAX runs
+               that loop as XLA)
   _build       nvcc build of csrc/*.cu and the ctypes binding
 
 Each wrapper launches its kernel on a CUDA tensor (or raises), uses its plain

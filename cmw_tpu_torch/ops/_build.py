@@ -108,12 +108,13 @@ def library() -> ctypes.CDLL:
 
 
 @functools.cache
-def kernel(name: str, n_ptrs: int, n_ints: int, n_floats: int = 0):
-    """C entry `name(ptr * n_ptrs, int * n_ints, float * n_floats, stream) -> int`
-    (looked up once per process)."""
+def kernel(name: str, n_ptrs: int, n_ints: int, n_floats: int = 0, n_doubles: int = 0):
+    """C entry `name(ptr * n_ptrs, int * n_ints, float * n_floats, double *
+    n_doubles, stream) -> int` (looked up once per process)."""
     fn = getattr(library(), name)
     fn.argtypes = (
-        [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints + [ctypes.c_float] * n_floats + [ctypes.c_void_p]
+        [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints + [ctypes.c_float] * n_floats
+        + [ctypes.c_double] * n_doubles + [ctypes.c_void_p]
     )
     fn.restype = ctypes.c_int
     return fn

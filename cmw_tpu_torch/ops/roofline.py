@@ -45,3 +45,23 @@ def admm_fused_work(B: int, n: int, m: int, nnz: int, iters: int) -> tuple[int, 
     counted over the batch's A) and the vector updates (12 m + 3 n)."""
     inputs = B * (n * n + m * n + 2 * n + 5 * m)
     return (inputs + B * (n + 2 * m)) * 4, iters * (B * (2 * n * n + 12 * m + 3 * n) + 4 * nnz)
+
+
+def riccati_admm_work(B: int, T: int, nc: int, ncor: int, nslot: int, iters: int, elem: int = 4) -> tuple[int, int]:
+    """(bytes, flops) of one Riccati ADMM call (K2): its inputs (the gains A,
+    B, C, K, KP, D1 of T stages and Sinv, the cone coefficients and slot
+    rotations, q, x0 [n] and l, u, rho, zc0, y0 [m]) read once and (x, zc, y,
+    prim_res) written once; per iteration each gain element once in the
+    backward sweep and A, B, C, K, KP once more in the forward one, Sinv once
+    (2 flops an element), A^T w and A x (2 nnz each; nnz = 3 + 15 per corner
+    and 9 per slot) and the vector updates (3 n + 10 m)."""
+    nu, np_ = 3 * nc * ncor, 3 * nc * nslot
+    ns, ncg = 9 + nu, T * nc * ncor
+    n, m = T * nu + np_, 8 * ncg + np_
+    forward = 81 + 9 * nu + 9 * np_ + nu * ns + nu * np_
+    stage = forward + nu * nu
+    gains = T * stage + np_ * np_
+    nnz = 18 * ncg + 9 * nc * nslot
+    inputs = gains + T * nc * 15 + nc * nslot * 9 + 2 * n + 5 * m
+    per_iter = 2 * T * (stage + forward) + 2 * np_ * np_ + 4 * nnz + 3 * n + 10 * m
+    return B * (inputs + n + 2 * m + 1) * elem, B * iters * per_iter

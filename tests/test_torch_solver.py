@@ -22,6 +22,7 @@ from cmw_tpu_torch import convert
 from cmw_tpu_torch.cmpc import CentroidalMPCSolver, ergocub_mpc_config
 from cmw_tpu_torch.core import contacts
 from cmw_tpu_torch.ops import admm_fused as K5
+from cmw_tpu_torch.ops import riccati_admm as K2
 from cmw_tpu_torch.ops import spd_inverse as K3
 from cmw_tpu_torch.ops import symv as K4
 
@@ -88,7 +89,7 @@ def test_solve_matches_jax(name):
     js, ts = JaxSolver(jcfg), CentroidalMPCSolver(tcfg)
     jsolve = jax.jit(jax.vmap(js.solve))
 
-    launches = (K3.launches, K4.launches, K5.launches)
+    launches = (K2.launches, K3.launches, K4.launches, K5.launches)
     jp, tp = batch(jcfg, 1.02)
     jsol = jsolve(jp, jax.vmap(lambda _: js.cold_start())(jnp.arange(len(PUSHES))))
     tsol = ts.solve(tp, ts.cold_start(len(PUSHES), device="cpu"))
@@ -103,7 +104,7 @@ def test_solve_matches_jax(name):
     warm = convert.warm_from_numpy({k: np.asarray(v) for k, v in jax.vmap(js.warm_from)(jp2, jsol)._asdict().items()},
                                    device="cpu")
     assert_same_solution(ts.solve(tp2, warm), jsol2)
-    assert (K3.launches, K4.launches, K5.launches) == launches  # CPU tensors never reach a kernel
+    assert (K2.launches, K3.launches, K4.launches, K5.launches) == launches  # CPU tensors never reach a kernel
 
 
 @pytest.mark.parametrize("kkt_impl", ["dense", "riccati"])
