@@ -37,7 +37,10 @@ calls, alone and fed by the MANN trajectory generator, and checks it:
      the robot preset's T = 13 at B = 1), in f32 within K2_GAP times the
      twin's own f32-vs-f64 gap (at B = 1 bitwise the twin: K2 takes its order
      of operations) and in f64 within K2_F64_RTOL, two launches bitwise
-     equal;
+     equal; and the rigid plant's tick (K6) on its four kinds of state
+     (standing, pushed, airborne, one sole lifting off) at K6_BATCHES, in
+     f32 within K6_GAP times the twin's own f32-vs-f64 gap and in f64 within
+     K6_F64_RTOL, two launches bitwise equal;
   3. the dense-KKT main path with the batched ADMM loop (K3, K4): a cold
      solve and 10 warm-started receding-horizon ticks at B = 1, the
      lateral-push footstep check, then the bench shape (`apps.bench`'s
@@ -57,7 +60,8 @@ calls, alone and fed by the MANN trajectory generator, and checks it:
   7. timings (printed, not asserted): each kernel at B = 1 and B = 512 beside
      its bound (and, where bytes set it, the rate reached on those bytes),
      its plain twin and, where one exists, the one PyTorch call
-     that computes the same function, and K2 at each case of K2_CASES (K3's two on PyTorch's default linalg
+     that computes the same function, K2 at each case of K2_CASES and K6 at
+     K6_BATCHES (K3's two on PyTorch's default linalg
      backend, as before the graphs, and on cuSOLVER, the package's setting,
      beside them), and K5 at the longer horizons; one
      torch.profiler pass over an SPD inverse, a packed symv and a fused ADMM
@@ -106,7 +110,8 @@ calls, alone and fed by the MANN trajectory generator, and checks it:
      with random joysticks and per-item contact_mu and servo_kp (4 items
      against the CPU f64); on every tick base_act_up > 0.8, base z > 0.55 m,
      mpc_prim < 1e-2 and every channel finite; K5 must launch sqp_iters
-     times per MPC tick and a rigid WBC tick must not wait for the card;
+     times per MPC tick, K6 once a control tick (the settle's too), and a
+     rigid WBC tick must not wait for the card;
      printed: the settle's wall, the rigid WBC tick's wall at B = 1 and 256,
      its launches, and one profiled B = 256 rigid WBC tick by span (the MPC
      stage's spans are phase 9's);
@@ -156,7 +161,7 @@ calls, alone and fed by the MANN trajectory generator, and checks it:
      through `run_episode_blocked` and through `run_episode_fold` (the
      sweep's fold): bitwise, else within GRAPH_RTOL; the wrappers'
      counts of a replay (the graphs' records of their captures) equal
-     eager's, and the replay's trace holds that many calls' worth of each
+     eager's (a rigid period's record: K6 mpc_every times), and the replay's trace holds that many calls' worth of each
      wrapper's csrc kernels, counted by their names (HAND_KERNELS; the
      kernels a call from phase 7's profile of one call, else read off an
      eager call's trace); printed: the capture seconds (instantiation
@@ -214,6 +219,7 @@ from cmw_tpu_torch.mann import network as N
 from cmw_tpu_torch.ops import _build
 from cmw_tpu_torch.ops import admm_fused as K5
 from cmw_tpu_torch.ops import riccati_admm as K2
+from cmw_tpu_torch.ops import rigid_step as K6
 from cmw_tpu_torch.ops import roofline as R
 from cmw_tpu_torch.ops import spd_inverse as K3
 from cmw_tpu_torch.ops import symv as K4
@@ -243,6 +249,20 @@ K2_CASES = (("gz", ergocub_gazebo_v1().mpc, (1, 256, 512)), ("sn000", ergocub_sn
 # orders through 24-30 iterations whose rows span rho 10..1e4
 # (tests/test_torch_riccati_admm.py); K2 in f64 within K2_F64_RTOL of the twin
 K2_GAP, K2_FLOOR, K2_F64_RTOL = 4.0, 1e-6, 1e-12
+K6_STAGES = (("rigid_step_kernel", "substeps"),)  # csrc/rigid_step.cu
+# K6's cases: the rigid plant's four kinds of state (standing, pushed,
+# airborne, one sole lifting off) at these batches, one control tick of
+# K6_DT (phase 2 holds them, phase 7 times them)
+K6_BATCHES = (1, 256)
+K6_DT = 0.002
+K6_PUSH = (90.0, -60.0, 0.0)  # N on the base: a sweep's push on ~57 kg
+# K6 in f32 against the twin in f64 on the same inputs, per state field within
+# K6_GAP times the twin's own f32-vs-f64 gap, the largest over the four kinds
+# (the f32 roundings of a single item's corner forces spread 5x from kind to
+# kind: its own gap is no scale); K6 in f64 within K6_F64_RTOL of the twin's
+# f64 (closed forms against autodiff, sums in other orders;
+# tests/test_torch_rigid_step.py)
+K6_GAP, K6_F64_RTOL = 4.0, 1e-9
 SYMV_RTOL, SYMV_ATOL = 2e-5, 1e-4  # f32 sums in another order (tests/test_ops.py:138)
 # K4's (B, nb): one item and the bench batch at one, two and four blocks a
 # side (n = 512 is the main path's), and nb = 9 past the old cap of 8
@@ -683,6 +703,127 @@ def check_riccati_admm(name, cfg, qps):
     return worst
 
 
+def rigid_spawn(model, B, dtype=torch.float64, device="cpu"):
+    """The walk-ready crouch with its soles 2 mm into the ground, B items,
+    contact_mu and servo_kp spread over the items."""
+    q0, R0 = kin.walk_ready_pose()
+    lR, lp = kin.fk(model, torch.as_tensor(q0)[None], torch.as_tensor(R0)[None], torch.zeros(1, 3, dtype=torch.float64))
+    _, fp = kin.frame_poses(model, lR, lp)
+    z = -min(float(fp[0, model.frame_index(f), 2]) for f in RB.SOLES) - 0.002
+    s = RB.initial_state(model, np.stack([q0] * B), np.stack([R0] * B), np.array([[0.0, 0.0, z]] * B),
+                         RB.RigidBodyConfig(), device=device, dtype=dtype)
+    mu = torch.linspace(0.8, 0.5, B, dtype=dtype, device=device)
+    kp = torch.linspace(3000.0, 2200.0, B, dtype=dtype, device=device)
+    return s._replace(params=s.params._replace(contact_mu=mu, servo_kp=kp))
+
+
+def rigid_kinds(model, B, ticks=12) -> dict:
+    """{kind: (state, q_cmd, ext_force_base)} in f64 on the CPU, B items: the
+    spawn after `ticks` ticks of the twin with the servos holding the crouch
+    ("settled"), pushed, lifted 0.3 m and tumbling ("airborne"), and rising
+    and rolling so that the left sole lifts off ("separating": some of its
+    corners' trial normal forces come out negative)."""
+    s = rigid_spawn(model, B)
+    cfg = RB.RigidBodyConfig()
+    for _ in range(ticks):
+        s = RB._dynamics_step(cfg, model, s, s.q, K6_DT, RB.SOLES, None, None)
+    gen = torch.Generator().manual_seed(7)
+    q_cmd = s.q + 0.02
+    nu = 0.5 * torch.randn(s.nu.shape, generator=gen, dtype=s.nu.dtype)
+    up = s._replace(base_pos=s.base_pos + torch.tensor([0.0, 0.0, 0.3], dtype=s.q.dtype), nu=nu)
+    lift = torch.zeros_like(s.nu)
+    lift[:, 2], lift[:, 3] = 0.2, 2.5
+    return {"settled": (s, s.q, None), "pushed": (s, q_cmd, torch.tensor([K6_PUSH] * B, dtype=s.q.dtype)),
+            "airborne": (up, q_cmd, None), "separating": (s._replace(nu=s.nu + lift), q_cmd, None)}
+
+
+def rigid_moved(case, device, dtype):
+    """A case's (state, q_cmd, ext) on device in dtype."""
+    s, q_cmd, ext = case
+
+    def to(t):
+        return t.to(device=device, dtype=dtype)
+    return (RB.RigidBodyState(*(to(t) for t in s[:-1]), RB.RigidDynParams(*(to(t) for t in s.params))), to(q_cmd),
+            None if ext is None else to(ext))
+
+
+def rigid_cases(model, B, device="cuda", dtype=torch.float32) -> dict:
+    """rigid_kinds at one item, tiled to B items, each item's nu moved by its
+    own 0.05 N(0, 1) where B > 1."""
+    gen = torch.Generator().manual_seed(11)
+    out = {}
+    for kind, (s, q_cmd, ext) in rigid_kinds(model, 1).items():
+        def tile(t):
+            return t.expand((B,) + t.shape[1:]).clone()
+        st = RB.RigidBodyState(*(tile(t) for t in s[:-1]), RB.RigidDynParams(*(tile(t) for t in s.params)))
+        if B > 1:
+            st = st._replace(nu=st.nu + 0.05 * torch.randn(st.nu.shape, generator=gen, dtype=st.nu.dtype))
+        out[kind] = rigid_moved((st, tile(q_cmd), None if ext is None else tile(ext)), device, dtype)
+    return out
+
+
+def rigid_gaps(got, want) -> dict:
+    """{field: max |got - want| / max(1, max |want|)} over a RigidBodyState's
+    tensors (not its parameters)."""
+    return {f: float((getattr(got, f).double() - getattr(want, f).double()).abs().max()
+                     / getattr(want, f).double().abs().max().clamp(min=1.0))
+            for f in RB.RigidBodyState._fields if f != "params"}
+
+
+def check_rigid_step(name, model, B, device="cuda"):
+    """K6 against its twin on rigid_cases at B items, one tick each: f32
+    within K6_GAP times the twin's own f32-vs-f64 gap (the largest over the
+    kinds, per field), f64 within K6_F64_RTOL, two launches
+    bitwise equal. Returns the largest f32 gap."""
+    cfg = RB.RigidBodyConfig()
+    c64, c32 = rigid_cases(model, B, device, torch.float64), rigid_cases(model, B, device, torch.float32)
+    kernel, twin, f64 = {}, {}, 0.0
+    for kind in c32:
+        s, qc, ext = c32[kind]
+        want = RB._dynamics_step(cfg, model, *c64[kind][:2], K6_DT, RB.SOLES, None, c64[kind][2])
+        got = RB._kernel_step(cfg, model, s, qc, K6_DT, RB.SOLES, None, ext)
+        again = RB._kernel_step(cfg, model, s, qc, K6_DT, RB.SOLES, None, ext)
+        t32 = RB._dynamics_step(cfg, model, s, qc, K6_DT, RB.SOLES, None, ext)
+        k64 = RB._kernel_step(cfg, model, *c64[kind][:2], K6_DT, RB.SOLES, None, c64[kind][2])
+        torch.cuda.synchronize()
+        require(all(torch.equal(a, b) for a, b in zip(got[:-1], again[:-1])),
+                f"K6 gives two results on the same inputs ({name} {kind})")
+        kernel[kind], twin[kind] = rigid_gaps(got, want), rigid_gaps(t32, want)
+        f64 = max(f64, max(rigid_gaps(k64, want).values()))
+    fields = kernel["settled"]
+    worst = {f: (max(g[f] for g in kernel.values()), max(g[f] for g in twin.values())) for f in fields}
+    ok = all(g <= K6_GAP * own for g, own in worst.values()) and f64 < K6_F64_RTOL
+    print(f"phase 2 K6 rigid_step {name}: the largest over {list(c32)} vs twin f64, kernel f32 / twin f32 "
+          + ", ".join(f"{f} {g:.2e} / {own:.2e}" for f, (g, own) in worst.items())
+          + f" (limit {K6_GAP:g} x twin); kernel f64 {f64:.2e} (limit {K6_F64_RTOL:g}); two launches "
+          f"bitwise equal; {K6.plan(model.nj, len(RB.SOLES), 4, torch.float32)}")
+    require(ok, f"K6 disagrees with its twin on {name}")
+    return max(g for g, _ in worst.values())
+
+
+def bound_rigid_step(model, B, cfg=RB.RigidBodyConfig(), dtype=torch.float32):
+    return R.bound(*R.rigid_step_work(B, 6 + model.nj, model.nj + 1, 4 * len(RB.SOLES), cfg.substeps,
+                                      dtype.itemsize))
+
+
+def rigid_step_times(tag, model):
+    """Phase 7's K6 rows: one tick of the pushed case at K6_BATCHES, kernel
+    and plain twin (CUDA events) beside the bound. Returns {B: (ms, plain,
+    None)} and {B: bound}."""
+    cfg = RB.RigidBodyConfig()
+    times, bounds = {}, {}
+    for B in K6_BATCHES:
+        s, qc, ext = rigid_cases(model, B)["pushed"]
+        ms = cuda_ms(lambda: RB._kernel_step(cfg, model, s, qc, K6_DT, RB.SOLES, None, ext), 50)
+        plain = cuda_ms(lambda: RB._dynamics_step(cfg, model, s, qc, K6_DT, RB.SOLES, None, ext), 2)
+        b_ms, b_by, t_bytes, t_ops = bound_rigid_step(model, B)
+        times[B], bounds[B] = (ms, plain, None), (b_ms, b_by, t_bytes, t_ops)
+        print(f"phase 7 time rigid_step (substeps {cfg.substeps}) B={B}: kernel {ms:.4f} ms, plain twin "
+              f"{plain:.4f} ms, library none, bound {b_ms:.4f} ms ({b_by}; bytes {t_bytes:.4f} ms, operations "
+              f"{t_ops:.4f} ms), kernel at {100 * b_ms / ms:.1f} % of the bound {tag}")
+    return times, bounds
+
+
 def bound_riccati_admm(cfg, B, dtype=torch.float32):
     return R.bound(*R.riccati_admm_work(B, cfg.T, cfg.n_contacts, cfg.n_corners, cfg.n_slots, cfg.admm_iters,
                                         dtype.itemsize))
@@ -894,7 +1035,7 @@ def coast(ctl, s):
     return s._replace(t=s.t + cfg.mpc.dt, tick=s.tick + cfg.mpc_every, x9=x9)
 
 
-KERNELS = {"spd_inverse": K3, "symv_packed": K4, "admm_fused": K5, "riccati_admm": K2}
+KERNELS = {"spd_inverse": K3, "symv_packed": K4, "admm_fused": K5, "riccati_admm": K2, "rigid_step": K6}
 
 
 def zero_launches():
@@ -1620,6 +1761,10 @@ def phase_rigid_loop(tag, settle, dev="cuda"):
     s0 = items_of(s_init, slice(0, 1))
     s0_cpu = checkpoint.load(settle64, to_cpu64(s0))
     cpu_settle_s = checkpoint.load_meta(settle64)["wall"]
+    got = read_launches()
+    add(got)
+    require(got["rigid_step"] == n_settle,
+            f"rigid settle launches {got}, expected rigid_step {n_settle} (one a control tick)")
     fz = float(s0.rb.corner_forces[..., 2].sum())
     nu = float(s0.rb.nu.abs().max())
     require(abs(fz - mg) / mg < 0.1 and nu < 0.1, f"rigid settle: corner fz {fz} N against mg {mg} N, max|nu| {nu}")
@@ -1647,8 +1792,9 @@ def phase_rigid_loop(tag, settle, dev="cuda"):
     got = read_launches()
     add(got)
     n_mpc = -(-RIGID_TICKS // every)
-    require(got["spd_inverse"] >= n_mpc and got["admm_fused"] == sqp * n_mpc and got["riccati_admm"] == 0,
-            f"rigid loop B=1 launches {got}, expected admm_fused {sqp} x {n_mpc} MPC ticks")
+    require(got["spd_inverse"] >= n_mpc and got["admm_fused"] == sqp * n_mpc and got["riccati_admm"] == 0
+            and got["rigid_step"] == RIGID_TICKS,
+            f"rigid loop B=1 launches {got}, expected admm_fused {sqp} x {n_mpc} MPC ticks, rigid_step one a tick")
     up, z, prim = rigid_invariants("rigid loop B=1", tel)
     t = time.perf_counter()
     _, tel64, active64 = rigid_run(ctl64, to_cpu64(s0), tick_inputs(stand.cpu().double(), RIGID_TICKS))
@@ -1675,8 +1821,8 @@ def phase_rigid_loop(tag, settle, dev="cuda"):
     wall_l = time.perf_counter() - t
     got = read_launches()
     add(got)
-    require(got["admm_fused"] == sqp * (-(-S // every)) and got["riccati_admm"] == 0,
-            f"rigid loop B=256 launches {got}")
+    require(got["admm_fused"] == sqp * (-(-S // every)) and got["riccati_admm"] == 0 and got["rigid_step"] == S,
+            f"rigid loop B=256 launches {got}, rigid_step one a tick")
     up_l, z_l, prim_l = rigid_invariants("rigid loop B=256, unpushed items", items_of(tel_l, slice(0, None, 2)))
     up_p, z_p, prim_p = rigid_invariants("rigid loop B=256, pushed items", items_of(tel_l, slice(1, None, 2)),
                                          solved=False)
@@ -1953,7 +2099,7 @@ def phase_sweep(tag, sweep):
         cfg = ergocub_gazebo_v1()
         stages = SWEEP_B // SWEEP_CHUNK * round(SWEEP_SECONDS / cfg.wbc_dt) // cfg.mpc_every
         want = {"spd_inverse": stages, "symv_packed": cfg.mpc.sqp_iters * cfg.mpc.admm_iters * stages,
-                "admm_fused": 0, "riccati_admm": 0}
+                "admm_fused": 0, "riccati_admm": 0, "rigid_step": 0}
         require(launches == want, f"sweep CLI launches {launches}, expected {want} (10 MPC stages x 2 chunks)")
         print(f"phase 11 sweep CLI (apps.sweep.main {' '.join(SWEEP_ARGS)}), {SWEEP_B} scenarios in chunks of "
               f"{SWEEP_CHUNK}: launches {launches}; wall {wall:.2f} s (the CLI's own {out['wall_seconds']} s), "
@@ -2249,13 +2395,13 @@ def phase_benchmarks(tag):
     cfg = ergocub_mpc_config()
     ric_solves = solves + 1 + (1 + BENCH_SAMPLES) * BENCH.LATENCY_CHAIN
     want = {"spd_inverse": solves, "symv_packed": cfg.sqp_iters * cfg.admm_iters, "admm_fused": 0,
-            "riccati_admm": cfg.sqp_iters * ric_solves}
+            "riccati_admm": cfg.sqp_iters * ric_solves, "rigid_step": 0}
     require(l_bench == want, f"apps.bench launches {l_bench}, expected {want}")
 
     for which, per_solve in (("both", {"spd_inverse": 1, "symv_packed": cfg.sqp_iters * cfg.admm_iters,
-                                        "admm_fused": 0, "riccati_admm": cfg.sqp_iters}),
+                                        "admm_fused": 0, "riccati_admm": cfg.sqp_iters, "rigid_step": 0}),
                              ("fused", {"spd_inverse": 1, "symv_packed": 0, "admm_fused": cfg.sqp_iters,
-                                        "riccati_admm": 0})):
+                                        "riccati_admm": 0, "rigid_step": 0})):
         t = time.perf_counter()
         lines, launches = captured(bench_kkt.main, [which, "--reps", str(BENCH_REPS)])
         for line in lines:
@@ -2273,7 +2419,7 @@ def phase_benchmarks(tag):
     # the inverse alone takes K3; the Riccati solves (breakdown.SOLVES, 1 + reps each) K2 once an SQP step
     sqp_steps = sum(dataclasses.replace(cfg, **kw).sqp_iters for _, kw in breakdown.SOLVES)
     want = {"spd_inverse": 1 + BENCH_REPS, "symv_packed": 0, "admm_fused": 0,
-            "riccati_admm": (1 + BENCH_REPS) * sqp_steps}
+            "riccati_admm": (1 + BENCH_REPS) * sqp_steps, "rigid_step": 0}
     require(launches == want, f"apps.breakdown launches {launches}, expected {want}")
     print(f"phase 13 took {time.perf_counter() - t_phase:.1f} s")
     return {name: l_bench[name] + launches[name] for name in l_bench}
@@ -2290,7 +2436,8 @@ GRAPH_WIDE_B = 256  # the plant's and the WBC stage's wide batch
 # each to the wrapper that launches it
 HAND_KERNEL = re.compile(r"^(?:void )?\(anonymous namespace\)::(\w+)[(<]")
 HAND_KERNELS = {kernel: name for name, stages in (("spd_inverse", K3_STAGES), ("symv_packed", K4_STAGES),
-                                                  ("admm_fused", K5_STAGES), ("riccati_admm", K2_STAGES))
+                                                  ("admm_fused", K5_STAGES), ("riccati_admm", K2_STAGES),
+                                                  ("rigid_step", K6_STAGES))
                 for kernel, _ in stages}
 # per wrapper: its kernels in one call, read off phase 7's one-call profiles
 # (else, in phase 14, off an eager call's trace)
@@ -2516,6 +2663,10 @@ def phase_graphs(tag, dev="cuda"):
             acc0 = (z * 0, z * 0, z * 0, torch.ones_like(z, dtype=torch.bool), torch.ones_like(z), z + 10.0, z)
             graph_check(f"period blocked {plant} B={B}", ctl.run_episode_blocked, (s, blk),
                         [(("period", ctl), (s_in, blk, None, None))], tag)
+            rec = entry_launches(RC.lookup(("period", ctl), s_in, blk, None, None))
+            require(rec["rigid_step"] == (k if plant == "rigid" else 0),
+                    f"period {plant} B={B}: the graph's record {rec}, expected rigid_step {k} a period on the rigid "
+                    "plant (one a WBC tick)")
             graph_check(f"period fold {plant} B={B}", lambda a, b: ctl.run_episode_fold(a, b, DS.fold, acc0), (s, blk),
                         [(("period", ctl), (s_in, blk, DS.fold, acc0))], tag)
 
@@ -2640,6 +2791,10 @@ def run(refs):
             qps = riccati_qps(cfg_k2, B)
             errs["riccati_admm"] = max(errs["riccati_admm"], check_riccati_admm(f"{case} B={B}", cfg_k2, qps))
         k2_qps[case] = qps
+    # K6 on the rigid plant's four kinds of state, one tick
+    urdf = kin.ergocub_urdf()
+    for B in K6_BATCHES:
+        errs["rigid_step"] = max(errs["rigid_step"], check_rigid_step(f"B={B}", urdf, B))
 
     # --- 3. dense main path: K3 + K4 ----------------------------------------
     dense = CentroidalMPCSolver(cfg_dense)
@@ -2736,6 +2891,10 @@ def run(refs):
     # K2 at both presets' shapes; its B = 512 row is the record's
     k2_times, k2_bounds = riccati_admm_times(tag, k2_qps)
     times[("riccati_admm", B512)], bounds[("riccati_admm", B512)] = k2_times[("gz", B512)], k2_bounds[("gz", B512)]
+    # K6 at B = 1 (the settle's) and 256 (the sweep's); its B = 256 row is the record's
+    k6_times, k6_bounds = rigid_step_times(tag, urdf)
+    times[("rigid_step", K6_BATCHES[-1])], bounds[("rigid_step", K6_BATCHES[-1])] = (k6_times[K6_BATCHES[-1]],
+                                                                                   k6_bounds[K6_BATCHES[-1]])
     # K5's launch at each horizon, and its time at the longer ones (B = 512
     # only where its inputs take a few GB: the last reads a dense A of 22 MB
     # per scenario)
@@ -2845,11 +3004,13 @@ def run(refs):
     sources = {"spd_inverse": ("cmw_tpu_torch/csrc/spd_inverse.cu", "cmw_tpu/ops/spd_inverse.py:132"),
                "symv_packed": ("cmw_tpu_torch/csrc/symv.cu", "cmw_tpu/ops/symv.py:77"),
                "admm_fused": ("cmw_tpu_torch/csrc/admm_fused.cu", "cmw_tpu/ops/admm_fused.py:143"),
-               "riccati_admm": ("cmw_tpu_torch/csrc/riccati_admm.cu", "none (JAX runs the loop as XLA)")}
+               "riccati_admm": ("cmw_tpu_torch/csrc/riccati_admm.cu", "none (JAX runs the loop as XLA)"),
+               "rigid_step": ("cmw_tpu_torch/csrc/rigid_step.cu", "none (JAX runs the plant's substeps as XLA)")}
     record = {"kernels": []}
     for name, (source, replaces) in sources.items():
-        ms, plain, lib = times[(name, B512)]
-        b_ms, b_by, _, _ = bounds[(name, B512)]
+        B_rec = K6_BATCHES[-1] if name == "rigid_step" else B512  # the sweep's batch; the chain's
+        ms, plain, lib = times[(name, B_rec)]
+        b_ms, b_by, _, _ = bounds[(name, B_rec)]
         record["kernels"].append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": (l_dense[name] + l_fused[name] + l_ric[name] + l_mann[name] + l_closed[name] + l_rigid[name]

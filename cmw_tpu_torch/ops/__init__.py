@@ -9,9 +9,13 @@
   riccati_admm all ADMM iterations of one SQP step on the Riccati path
                (csrc/riccati_admm.cu); replaces no Pallas kernel (JAX runs
                that loop as XLA)
+  rigid_step   every substep of the rigid plant's control tick
+               (csrc/rigid_step.cu); replaces no Pallas kernel (JAX runs the
+               substeps as XLA)
   _build       nvcc build of csrc/*.cu and the ctypes binding
 
 Each wrapper launches its kernel on a CUDA tensor (or raises), uses its plain
 PyTorch twin on a CPU tensor, and counts its launches in a module-level
-`launches` integer.
+`launches` integer. `rigid_step` alone takes no CPU tensor: its twin,
+`sim/rigid_body._dynamics_step`, is run by its caller on the CPU.
 """

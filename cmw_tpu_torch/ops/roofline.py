@@ -65,3 +65,22 @@ def riccati_admm_work(B: int, T: int, nc: int, ncor: int, nslot: int, iters: int
     inputs = gains + T * nc * 15 + nc * nslot * 9 + 2 * n + 5 * m
     per_iter = 2 * T * (stage + forward) + 2 * np_ * np_ + 4 * nnz + 3 * n + 10 * m
     return B * (inputs + n + 2 * m + 1) * elem, B * iters * per_iter
+
+
+def rigid_step_work(B: int, ndof: int, nlinks: int, ncorners: int, substeps: int, elem: int = 4) -> tuple[int, int]:
+    """(bytes, flops) of one rigid plant tick (K6): the state read once (base
+    pose, q, nu, the corners' forces and anchors, the servo integral, the 12
+    plant parameters, q_cmd and the push) and written once; per substep the
+    FK with the joints' rotations (~240 flops a joint), each link's inertia
+    and Newton-Euler terms (~400 a link), M's entries (12 an entry) and M nu,
+    the corner Jacobians (9 a corner and joint), and one implicit solve: J^T D
+    J over the lower triangle (3 a row and entry), the Cholesky (n^3 / 3), both
+    substitutions (2 n^2), J^T f and J nu (4 n a row). The kernel solves a
+    second time only for an item where a corner drops out of the active set;
+    that solve is not counted, so the count is the least work of a tick."""
+    n, nj, rows = ndof, ndof - 6, 3 * ncorners
+    solve = n * (n + 1) // 2 * rows * 3 + n**3 // 3 + 2 * n * n + 4 * n * rows
+    substep = 240 * nj + 400 * nlinks + 14 * n * n + 9 * ncorners * nj + solve
+    state_in = 12 + 3 * nj + n + 5 * ncorners + 12 + 3
+    state_out = 12 + 2 * nj + n + 5 * ncorners
+    return B * (state_in + state_out) * elem, B * substeps * substep

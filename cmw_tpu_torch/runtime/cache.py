@@ -49,7 +49,7 @@ another traces into it.
 
 The kernel wrappers' launch counts (`ops/spd_inverse.launches`,
 `ops/symv.launches`, `ops/admm_fused.launches`,
-`ops/riccati_admm.launches`) move only while Python runs
+`ops/riccati_admm.launches`, `ops/rigid_step.launches`) move only while Python runs
 the wrapper. The warm-up's and the capture's moves are taken back; the
 capture's are recorded with the graph and added on every replay, so a
 graphed call counts what one eager call counts.
@@ -84,10 +84,10 @@ import torch
 import torch.utils._pytree as pytree
 
 from cmw_tpu_torch.core import consts
-from cmw_tpu_torch.ops import admm_fused, riccati_admm, spd_inverse, symv
+from cmw_tpu_torch.ops import admm_fused, riccati_admm, rigid_step, spd_inverse, symv
 from cmw_tpu_torch.runtime import trace
 
-COUNTED = (spd_inverse, symv, admm_fused, riccati_admm)  # modules whose `launches` a graph carries
+COUNTED = (spd_inverse, symv, admm_fused, riccati_admm, rigid_step)  # modules whose `launches` a graph carries
 CARD = "cuda"  # the device type whose calls are captured (the CPU tests' fake card sets "cpu")
 
 _state = threading.local()  # per thread: `disabled` depth, `inside` a warm-up or capture
@@ -120,7 +120,7 @@ class Entry(NamedTuple):
     outputs: list  # the distinct static output tensors
     layout: list  # per output leaf: ("in", i) | ("out", j) | ("static", value)
     out_spec: Any
-    launches: tuple  # K3 / K4 / K5 / K2 launches of one replay
+    launches: tuple  # COUNTED's counts of one replay
     capture_s: float  # warm-up (if any) + capture + instantiation seconds
     instantiate_s: float  # the instantiation's share of capture_s
     traced: trace.GraphTrace | None  # marks and counters, for a graph captured with tracing on

@@ -38,6 +38,7 @@ from cmw_tpu_torch.core import kinematics as kin
 from cmw_tpu_torch.core import lie
 from cmw_tpu_torch.core.centroidal import GRAVITY
 from cmw_tpu_torch.core.consts import constant_like, eye_like
+from cmw_tpu_torch.ops import rigid_step as K6
 from cmw_tpu_torch.runtime import cache
 
 SOLES = ("l_sole", "r_sole")
@@ -308,19 +309,31 @@ def dynamics_step(cfg: RigidBodyConfig, model: kin.RobotModel, state: RigidBodyS
     (world N, at the base origin) a push. Of `cfg` only `substeps` and
     `armature` are read: the other parameters come from `state.params`.
 
-    On the card the tick replays the CUDA graph cached for (cfg's value, the
-    model and corners_local by identity, dt, sole_frames, the inputs'
-    shapes), the counterpart of JAX's substep scan
-    (`cmw_tpu/sim/rigid_body.py:460`); on the CPU it runs eagerly."""
+    On the card the tick is one launch of the kernel K6 (`ops/rigid_step`,
+    every substep of every item), inside the CUDA graph cached for (cfg's
+    value, the model and corners_local by identity, dt, sole_frames, the
+    inputs' shapes), the counterpart of JAX's substep scan
+    (`cmw_tpu/sim/rigid_body.py:460`); on the CPU its twin `_dynamics_step`
+    runs eagerly."""
     def tick(st, qc, ef):
-        return _dynamics_step(cfg, model, st, qc, dt, sole_frames, corners_local, ef)
+        step = _dynamics_step if st.q.device.type == "cpu" else _kernel_step
+        return step(cfg, model, st, qc, dt, sole_frames, corners_local, ef)
 
     owner = ("dynamics_step", cfg, cache.Ident(model), dt, sole_frames,
              None if corners_local is None else cache.Ident(corners_local))
     return cache.graphed(owner, tick, state, q_cmd, ext_force_base)
 
 
+def _kernel_step(cfg, model, state, q_cmd, dt, sole_frames, corners_local, ext_force_base):
+    """The tick as one launch of K6 (CUDA tensors; it raises on any other)."""
+    cl = default_corners(len(sole_frames)) if corners_local is None else corners_local
+    out = K6.rigid_step(model, sole_frames, cl, tuple(state[:-1]), torch.stack(tuple(state.params), dim=-1), q_cmd,
+                        ext_force_base, substeps=cfg.substeps, h=dt / cfg.substeps, armature=cfg.armature)
+    return RigidBodyState(*out, state.params)
+
+
 def _dynamics_step(cfg, model, state, q_cmd, dt, sole_frames, corners_local, ext_force_base):
+    """The plain twin of K6: the tick's substeps, eagerly."""
     cl = corners(state.q, corners_local, len(sole_frames))
     f_ext = torch.zeros_like(state.base_pos) if ext_force_base is None else ext_force_base
     h = dt / cfg.substeps

@@ -48,7 +48,7 @@ from cmw_tpu_torch.cmpc.formulation import no_adjust
 from cmw_tpu_torch.core import kinematics as TK
 from cmw_tpu_torch.dist import sweep as TS
 from cmw_tpu_torch.mann.generator import GeneratorConfig
-from cmw_tpu_torch.ops import admm_fused, riccati_admm, spd_inverse, symv
+from cmw_tpu_torch.ops import admm_fused, riccati_admm, rigid_step, spd_inverse, symv
 from cmw_tpu_torch.runtime import cache, trace
 from cmw_tpu_torch.runtime import loop as TL
 from cmw_tpu_torch.runtime.config import ergocub_gazebo_v1
@@ -200,10 +200,11 @@ def test_disable_graphs_nests(card):
 
 
 def test_launch_bookkeeping(card):
-    def kernels(x):  # stands for a path through the wrappers: K3 once, K5 twice, K2 twice
+    def kernels(x):  # stands for a path through the wrappers: K3 once, K5 twice, K2 twice, K6 once
         spd_inverse.launches += 1
         admm_fused.launches += 2
         riccati_admm.launches += 2
+        rigid_step.launches += 1
         return x + 1.0
 
     def outer(x):  # a graphed call inside another's capture is part of it
@@ -212,17 +213,17 @@ def test_launch_bookkeeping(card):
 
     x = torch.zeros(3)
     assert torch.equal(cache.graphed(("k",), kernels, x), x + 1.0)
-    assert cache.read_launches() == (1, 0, 2, 2)  # warm-up and capture taken back, one replay added
+    assert cache.read_launches() == (1, 0, 2, 2, 1)  # warm-up and capture taken back, one replay added
     for _ in range(2):
         cache.graphed(("k",), kernels, x)
-    assert cache.read_launches() == (3, 0, 6, 6)
-    assert cache.lookup(("k",), x).launches == (1, 0, 2, 2)
+    assert cache.read_launches() == (3, 0, 6, 6, 3)
+    assert cache.lookup(("k",), x).launches == (1, 0, 2, 2, 1)
     for m in cache.COUNTED:
         m.launches = 0
     for _ in range(2):
         assert torch.equal(cache.graphed(("outer",), outer, x), (x + 1.0) * 2.0)
-    assert cache.read_launches() == (2, 2, 4, 4)
-    assert cache.lookup(("outer",), x).launches == (1, 1, 2, 2) and cache.lookup(("inner",), x) is None
+    assert cache.read_launches() == (2, 2, 4, 4, 2)
+    assert cache.lookup(("outer",), x).launches == (1, 1, 2, 2, 1) and cache.lookup(("inner",), x) is None
 
 
 def test_eager_run_skips_the_warm_up(card):
